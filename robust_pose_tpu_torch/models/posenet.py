@@ -1,0 +1,224 @@
+"""PoseNet inference: RAFT flow + TinyUNet confidence heads + LM pose solve
+(port of the inference methods of ``robust_pose_tpu/models/posenet.py``).
+
+NHWC tensors, images in [0, 255]. Config keys: image_shape (H, W), iters,
+lbgfs_iters, use_weights, mixed_precision (bf16 convs and correlation
+features, f32 parameters), unet_levels, solver_early_exit. The training
+forward and the frame-to-model methods wait for later slices.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+from torch import nn
+from torch.profiler import record_function
+
+from robust_pose_tpu_torch.device import resolve_device
+from robust_pose_tpu_torch.models.layers import BatchNorm
+from robust_pose_tpu_torch.models.raft import CDIM, HDIM, RAFT, SplitConv1x1
+from robust_pose_tpu_torch.models.unet import TinyUNet
+from robust_pose_tpu_torch.ops.geometry import create_img_coords, depth_to_pcl
+from robust_pose_tpu_torch.ops.warp import (
+    eighth_from_fullres_warp,
+    warp_pcl_mask,
+    warp_then_eighth,
+)
+from robust_pose_tpu_torch.solver.gauss_newton import SolverConfig, solve_pose
+from robust_pose_tpu_torch.solver.objectives import PoseProblemInputs
+
+Tensor = torch.Tensor
+
+
+class PoseNetOutputs(NamedTuple):
+    pose: Tensor          # (B, 7)
+    pose_tan: Tensor      # (B, 6)
+    depth1: Tensor        # (B, H, W, 1)
+    depth2: Tensor        # (B, H, W, 1)
+    conf1: Tensor         # (B, H, W, 1) 2D confidence
+    conf2: Tensor         # (B, H, W, 1) 3D confidence
+    flow: Tensor          # (B, H, W, 2) temporal flow
+    stereo_flow2: Tensor  # (B, H, W, 2)
+    feats: Any = None     # (fmap, net, inp) of image2l for the next call
+    solver_iters: Any = None  # (B,) int32 realized LM iterations
+
+
+class PoseNet(nn.Module):
+    def __init__(self, config: dict, device=None):
+        super().__init__()
+        self.config = dict(config)
+        H, W = config["image_shape"]
+        mp = config.get("mixed_precision", True)
+        dt = torch.bfloat16 if mp else torch.float32
+        self.flow = RAFT(iters=config.get("iters", 12), dtype=dt, corr_dtype=dt)
+        levels = config.get("unet_levels", 3)
+        self.weight_head_2d = TinyUNet(HDIM + CDIM + 8, (H, W), dt, levels)
+        self.weight_head_3d = TinyUNet(HDIM + CDIM + 8 + 8, (H, W), dt, levels)
+        self.loss_weight = nn.Parameter(torch.ones(2))
+        self.register_buffer("img_coords", create_img_coords(H, W),
+                             persistent=False)
+        self.solver_cfg = SolverConfig(
+            iters=config.get("lbgfs_iters", 20),
+            early_exit=config.get("solver_early_exit", True))
+        self.eval()
+        self.to(resolve_device(device))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        """Random weights from ``generator``: LeCun-normal conv kernels
+        (flax's default), zero biases, identity BatchNorm, unit loss
+        weights."""
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+            elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, SplitConv1x1)):
+                w = m.weight
+                fan_in = (w[:, 0] if isinstance(m, nn.ConvTranspose2d)
+                          else w[0]).numel()
+                w.copy_(torch.randn(w.shape, generator=generator) / fan_in ** 0.5)
+                m.bias.zero_()
+        self.loss_weight.fill_(1.0)
+
+    # building blocks -----------------------------------------------------
+
+    def flow2depth(self, imagel, imager, baseline):
+        """Stereo flow -> normalized depth; returns (depth, valid, flow)."""
+        flow, _, _ = self.flow(imagel, imager)
+        return self.disparity_to_depth(flow, baseline) + (flow,)
+
+    @staticmethod
+    def disparity_to_depth(stereo_flow, baseline):
+        depth = baseline[:, None, None] / -stereo_flow[..., 0]
+        valid = (depth > 0) & (depth <= 1.0)
+        depth = torch.where(valid, depth, 1.0)
+        return depth[..., None], valid[..., None]
+
+    def get_weight_maps(self, pcl1, depth2, intrinsics, image1l, image2l,
+                        mask2, time_flow, stereo_flow1, stereo_flow2, hidden,
+                        context):
+        """Warp frame-2 quantities into frame-1 correspondence and predict
+        the 2D/3D confidence maps; the point-cloud warp fetches one packed
+        channel, the image/stereo-flow channels are warped at the 1/8
+        downsample's taps only."""
+        pcl2_w, mask2 = warp_pcl_mask(depth2, mask2, time_flow, intrinsics)
+        if self.config.get("use_weights", True):
+            inp1 = eighth_from_fullres_warp(
+                torch.cat([stereo_flow1, image1l, pcl1], dim=-1))
+            five_c = warp_then_eighth(
+                torch.cat([stereo_flow2, image2l], dim=-1), time_flow)
+            inp2 = torch.cat([five_c, eighth_from_fullres_warp(pcl2_w)], dim=-1)
+            feat = torch.cat([inp1, hidden, context], dim=-1)
+            conf1 = torch.sigmoid(self.weight_head_2d(feat))
+            feat3 = torch.cat([inp1, inp2, hidden, context], dim=-1)
+            conf2 = torch.sigmoid(self.weight_head_3d(feat3))
+        else:
+            conf1 = torch.ones(mask2.shape, dtype=torch.float32,
+                               device=mask2.device)
+            conf2 = conf1
+        return conf1, conf2, pcl2_w, mask2
+
+    def _solve(self, time_flow, pcl1, pcl2, conf1, conf2, mask1, mask2,
+               intrinsics):
+        b = time_flow.shape[0]
+        xs = PoseProblemInputs(
+            flow=time_flow, pcl1=pcl1, pcl2=pcl2, weights1=conf1,
+            weights2=conf2, mask1=mask1, mask2=mask2, intrinsics=intrinsics,
+            loss_weight=self.loss_weight[None].expand(b, 2))
+        return solve_pose(xs, self.solver_cfg)
+
+    # inference -----------------------------------------------------------
+
+    def encode_ref(self, image):
+        """(fmap, net, inp) of a reference image: the ``feats`` cache."""
+        fmap = self.flow.encode_fnet(image)
+        net, inp = self.flow.encode_cnet(image)
+        return fmap, net, inp
+
+    def infer(self, image1l, image2l, intrinsics, baseline, depth1, image2r,
+              mask1, mask2, stereo_flow1, feats=None) -> PoseNetOutputs:
+        """One step: temporal + stereo flow in one RAFT pass, depth, weight
+        maps, LM solve. With ``feats`` (the previous call's ``out.feats``)
+        image1l is not re-encoded."""
+        b = image1l.shape[0]
+        if feats is None:
+            enc = self.flow.encode_fnet(torch.cat([image1l, image2l, image2r]))
+            f1l, f2l, f2r = enc[:b], enc[b:2 * b], enc[2 * b:]
+            net_u, inp_u = self.flow.encode_cnet(torch.cat([image1l, image2l]))
+            net1l, net2l = net_u[:b], net_u[b:]
+            inp1l, inp2l = inp_u[:b], inp_u[b:]
+        else:
+            f1l, net1l, inp1l = feats
+            enc = self.flow.encode_fnet(torch.cat([image2l, image2r]))
+            f2l, f2r = enc[:b], enc[b:]
+            net2l, inp2l = self.flow.encode_cnet(image2l)
+
+        flows, hidden, context = self.flow.flow_from_features(
+            torch.cat([f1l, f2l]), torch.cat([f2l, f2r]),
+            torch.cat([net1l, net2l]), torch.cat([inp1l, inp2l]))
+        time_flow, stereo_flow2 = flows[:b], flows[b:]
+        hidden, context = hidden[:b], context[:b]
+
+        depth2, valid2 = self.disparity_to_depth(stereo_flow2, baseline)
+        mask2 = mask2 & valid2
+        pcl1 = depth_to_pcl(depth1, intrinsics, self.img_coords)
+        conf1, conf2, pcl2, mask2 = self.get_weight_maps(
+            pcl1, depth2, intrinsics, image1l, image2l, mask2, time_flow,
+            stereo_flow1, stereo_flow2, hidden, context)
+        pose, pose_tan, niter = self._solve(
+            time_flow, pcl1, pcl2, conf1, conf2, mask1, mask2, intrinsics)
+        return PoseNetOutputs(pose, pose_tan, depth1, depth2, conf1, conf2,
+                              time_flow, stereo_flow2, (f2l, net2l, inp2l),
+                              niter)
+
+    def infer_window(self, limgs, rimgs, masks, intrinsics, baseline,
+                     prev_img, prev_depth1, prev_mask, prev_stereo_flow,
+                     feats) -> PoseNetOutputs:
+        """A window of T frames in one batch-2T RAFT pass (T temporal pairs,
+        then T stereo pairs) and one batch-T solve.
+
+        :param limgs/rimgs: (T, H, W, 3); masks (T, H, W, 1) bool
+        :param prev_*: the carried reference frame (leading dim 1); depth
+            already depth-scale-normalized
+        :param feats: (fmap, net, inp) encoder cache of ``prev_img``
+        :return: PoseNetOutputs with leading dim T; ``feats`` holds the
+            last frame's cache
+        """
+        t = limgs.shape[0]
+        # the profiler spans name the window's four stages (read by
+        # chip_smoke.py's profile phase); outside a profiler they cost a
+        # few microseconds each
+        with record_function("infer_window.encode"):
+            enc = self.flow.encode_fnet(torch.cat([limgs, rimgs]))
+            fl, fr = enc[:t], enc[t:]
+            net_u, inp_u = self.flow.encode_cnet(limgs)
+        pf, pnet, pinp = feats
+        with record_function("infer_window.flow"):
+            flows, hidden, context = self.flow.flow_from_features(
+                torch.cat([pf, fl[:-1], fl]), torch.cat([fl, fr]),
+                torch.cat([pnet, net_u[:-1], net_u]),
+                torch.cat([pinp, inp_u[:-1], inp_u]))
+        time_flow, stereo_flow2 = flows[:t], flows[t:]
+        hidden, context = hidden[:t], context[:t]
+
+        with record_function("infer_window.weights"):
+            depth2, valid2 = self.disparity_to_depth(stereo_flow2,
+                                                     baseline.expand(t))
+            mask2 = masks & valid2
+            image1l = torch.cat([prev_img, limgs[:-1]])
+            depth1 = torch.cat([prev_depth1, depth2[:-1]])
+            mask1 = torch.cat([prev_mask, masks[:-1]])
+            stereo_flow1 = torch.cat([prev_stereo_flow, stereo_flow2[:-1]])
+            K = intrinsics.expand(t, 3, 3)
+            pcl1 = depth_to_pcl(depth1, K, self.img_coords)
+            conf1, conf2, pcl2_w, mask2_w = self.get_weight_maps(
+                pcl1, depth2, K, image1l, limgs, mask2, time_flow,
+                stereo_flow1, stereo_flow2, hidden, context)
+        with record_function("infer_window.solve"):
+            pose, pose_tan, niter = self._solve(
+                time_flow, pcl1, pcl2_w, conf1, conf2, mask1, mask2_w, K)
+        return PoseNetOutputs(pose, pose_tan, depth1, depth2, conf1, conf2,
+                              time_flow, stereo_flow2,
+                              (fl[-1:], net_u[-1:], inp_u[-1:]), niter)

@@ -1,0 +1,315 @@
+"""RAFT optical flow, large variant, inference (port of
+``robust_pose_tpu/models/raft.py``).
+
+Module and parameter names follow the JAX package's flax tree so that
+``utils.convert.params_from_jax`` maps one onto the other by path. Public
+methods take and return NHWC tensors; inside, activations are NCHW in
+``channels_last`` memory, so the NHWC view a norm or a lookup needs is a
+free ``permute``. Correlation: the on-the-fly window lookup
+(``ops.corr_onthefly``) over f2 features mean-pooled in f32 and cast to the
+correlation dtype, as the JAX package does on an accelerator.
+
+The small variant, dropout and remat wait for later slices.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from robust_pose_tpu_torch.models.layers import BatchNorm, Conv2d, cached_cast
+from robust_pose_tpu_torch.ops.corr_onthefly import (
+    onthefly_lookup,
+    pool_fmap_pyramid,
+)
+from robust_pose_tpu_torch.ops.instance_norm import instance_norm
+
+Tensor = torch.Tensor
+
+CORR_LEVELS = 4
+CORR_RADIUS = 4
+HDIM = 128
+CDIM = 128
+
+
+def nchw(x: Tensor) -> Tensor:
+    """NHWC tensor -> NCHW view (channels_last memory when x is contiguous)."""
+    return x.permute(0, 3, 1, 2)
+
+
+def nhwc(x: Tensor) -> Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+def instance_norm_nchw(x: Tensor) -> Tensor:
+    """``instance_norm`` on an NCHW tensor through its NHWC view; the stats
+    kernel takes contiguous NHWC, i.e. a channels_last NCHW tensor."""
+    xh = nhwc(x)
+    if not xh.is_contiguous():
+        xh = xh.contiguous()
+    return nchw(instance_norm(xh))
+
+
+class ResidualBlock(nn.Module):
+    def __init__(self, cin, planes, norm="instance", stride=1,
+                 dtype=torch.float32):
+        super().__init__()
+        self.norm = norm
+        self.conv1 = Conv2d(cin, planes, 3, stride, 1, dtype)
+        self.conv2 = Conv2d(planes, planes, 3, 1, 1, dtype)
+        self.has_down = stride != 1 or cin != planes
+        if self.has_down:
+            self.downsample = Conv2d(cin, planes, 1, stride, 0, dtype)
+        if norm == "batch":
+            self.norm1 = BatchNorm(planes)
+            self.norm2 = BatchNorm(planes)
+            if self.has_down:
+                self.norm3 = BatchNorm(planes)
+
+    def _norm(self, name, x):
+        if self.norm == "instance":
+            return instance_norm_nchw(x)
+        if self.norm == "batch":
+            return getattr(self, name)(x)
+        return x
+
+    def forward(self, x):
+        y = F.relu(self._norm("norm1", self.conv1(x)))
+        y = F.relu(self._norm("norm2", self.conv2(y)))
+        if self.has_down:
+            x = self._norm("norm3", self.downsample(x))
+        return F.relu(x + y)
+
+
+class BasicEncoder(nn.Module):
+    """Feature/context encoder at 1/8 resolution; NCHW in and out."""
+
+    def __init__(self, output_dim=256, norm="instance", dtype=torch.float32):
+        super().__init__()
+        self.norm = norm
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, dtype)
+        if norm == "batch":
+            self.norm1 = BatchNorm(64)
+        cin = 64
+        for i, (planes, stride) in enumerate([(64, 1), (96, 2), (128, 2)]):
+            setattr(self, f"layer{i + 1}_0",
+                    ResidualBlock(cin, planes, norm, stride, dtype))
+            setattr(self, f"layer{i + 1}_1",
+                    ResidualBlock(planes, planes, norm, 1, dtype))
+            cin = planes
+        self.conv2 = Conv2d(128, output_dim, 1, 1, 0, dtype)
+
+    def forward(self, x):
+        x = self.conv1(x)
+        x = instance_norm_nchw(x) if self.norm == "instance" else self.norm1(x)
+        x = F.relu(x)
+        for i in range(3):
+            x = getattr(self, f"layer{i + 1}_0")(x)
+            x = getattr(self, f"layer{i + 1}_1")(x)
+        return self.conv2(x)
+
+
+class SplitConv1x1(nn.Module):
+    """1x1 conv over the channel concatenation of the per-level lookup
+    outputs ``(B, C_l, N)``, without materializing the concatenation: the
+    kernel is sliced per part and the partial products are summed.
+    Returns NCHW (channels_last memory)."""
+
+    def __init__(self, cin, cout, dtype=torch.float32):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.weight = nn.Parameter(torch.empty(cout, cin, 1, 1))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
+
+    def forward(self, parts, hw):
+        dt = self.compute_dtype
+        w, b = cached_cast(self, (self.weight, self.bias), dt)
+        k = w[:, :, 0, 0].t()                                # (Cin, Cout)
+        out = None
+        off = 0
+        for part in parts:
+            ci = part.shape[1]
+            y = part.to(dt).transpose(1, 2) @ k[off:off + ci]   # (B, N, Cout)
+            out = y if out is None else out + y
+            off += ci
+        if off != k.shape[0]:
+            raise ValueError(f"SplitConv1x1: {off} input channels, "
+                             f"expected {k.shape[0]}")
+        out = out + b
+        return nchw(out.reshape(out.shape[0], hw[0], hw[1], -1))
+
+
+class BasicMotionEncoder(nn.Module):
+    def __init__(self, dtype=torch.float32):
+        super().__init__()
+        cor_planes = CORR_LEVELS * (2 * CORR_RADIUS + 1) ** 2
+        self.convc1 = SplitConv1x1(cor_planes, 256, dtype)
+        self.convc2 = Conv2d(256, 192, 3, 1, 1, dtype)
+        self.convf1 = Conv2d(2, 128, 7, 1, 3, dtype)
+        self.convf2 = Conv2d(128, 64, 3, 1, 1, dtype)
+        self.conv = Conv2d(192 + 64, 128 - 2, 3, 1, 1, dtype)
+
+    def forward(self, flow, corr):
+        """flow (B, 2, H, W) NCHW; corr: list of (B, 81, N)."""
+        c = F.relu(self.convc1(corr, flow.shape[2:]))
+        c = F.relu(self.convc2(c))
+        f = F.relu(self.convf1(flow))
+        f = F.relu(self.convf2(f))
+        out = F.relu(self.conv(torch.cat([c, f], dim=1)))
+        return torch.cat([out, flow.to(out.dtype)], dim=1)
+
+
+class SepConvGRU(nn.Module):
+    """Separable ConvGRU; the z and r gates of each pass run as one conv
+    with the kernels concatenated along the output channels."""
+
+    def __init__(self, hidden_dim=HDIM, input_dim=HDIM + 128,
+                 dtype=torch.float32):
+        super().__init__()
+        self.compute_dtype = dtype
+        cin = hidden_dim + input_dim
+        for name, ks, pad in (("1", (1, 5), (0, 2)), ("2", (5, 1), (2, 0))):
+            setattr(self, "convz" + name, Conv2d(cin, hidden_dim, ks, 1, pad, dtype))
+            setattr(self, "convr" + name, Conv2d(cin, hidden_dim, ks, 1, pad, dtype))
+            setattr(self, "convq" + name, Conv2d(cin, hidden_dim, ks, 1, pad, dtype))
+
+    def _zr(self, hx, name):
+        cz, cr = getattr(self, "convz" + name), getattr(self, "convr" + name)
+        w, b = cached_cast(
+            self, (cz.weight, cr.weight, cz.bias, cr.bias), self.compute_dtype,
+            make=lambda wz, wr, bz, br: (torch.cat([wz, wr]), torch.cat([bz, br])),
+            slot="_zr" + name)
+        out = torch.sigmoid(F.conv2d(hx, w, b, padding=cz.padding))
+        d = cz.out_channels
+        return out[:, :d], out[:, d:]
+
+    def forward(self, h, x):
+        dt = self.compute_dtype
+        h = h.to(dt)
+        x = x.to(dt)
+        for name in ("1", "2"):
+            z, r = self._zr(torch.cat([h, x], dim=1), name)
+            q = torch.tanh(getattr(self, "convq" + name)(
+                torch.cat([r * h, x], dim=1)))
+            h = (1 - z) * h + z * q
+        return h
+
+
+class FlowHead(nn.Module):
+    def __init__(self, dtype=torch.float32):
+        super().__init__()
+        self.conv1 = Conv2d(HDIM, 256, 3, 1, 1, dtype)
+        # flow deltas accumulate over the iterations: f32
+        self.conv2 = Conv2d(256, 2, 3, 1, 1, torch.float32)
+
+    def forward(self, x):
+        return self.conv2(F.relu(self.conv1(x)).float())
+
+
+class BasicUpdateBlock(nn.Module):
+    def __init__(self, dtype=torch.float32):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.encoder = BasicMotionEncoder(dtype)
+        self.gru = SepConvGRU(dtype=dtype)
+        self.flow_head = FlowHead(dtype)
+
+    def forward(self, net, inp, corr, flow):
+        dt = self.compute_dtype
+        motion = self.encoder(flow.to(dt), corr)
+        net = self.gru(net, torch.cat([inp.to(dt), motion], dim=1))
+        return net, self.flow_head(net)
+
+
+class UpMaskHead(nn.Module):
+    """Convex-upsampling mask head, applied once to the final hidden state."""
+
+    def __init__(self, dtype=torch.float32):
+        super().__init__()
+        self.mask_conv1 = Conv2d(HDIM, 256, 3, 1, 1, dtype)
+        self.mask_conv2 = Conv2d(256, 64 * 9, 1, 1, 0, torch.float32)
+
+    def forward(self, net):
+        return 0.25 * self.mask_conv2(F.relu(self.mask_conv1(net)).float())
+
+
+def upsample_flow_convex(flow: Tensor, mask: Tensor) -> Tensor:
+    """Convex-combination 8x upsampling of 1/8-res flow.
+
+    :param flow: (B, H, W, 2); mask: (B, H, W, 64*9) logits (neighbour-major)
+    :return: (B, 8H, 8W, 2)
+    """
+    b, h, w, _ = flow.shape
+    m = mask.reshape(b, h, w, 9, 64)
+    es = torch.exp(m - m.amax(dim=3, keepdim=True))
+    den = es.sum(dim=3)                                        # (B, H, W, 64)
+    fp = F.pad(8.0 * flow, (0, 0, 1, 1, 1, 1))
+    acc = 0.0
+    # 3x3 neighbourhood in row-major (di, dj) order (F.unfold's order)
+    for k in range(9):
+        i, j = divmod(k, 3)
+        acc = acc + es[:, :, :, k, :, None] * fp[:, i:i + h, j:j + w, None, :]
+    u = acc / den[..., None]                                   # (B, H, W, 64, 2)
+    u = u.reshape(b, h, w, 8, 8, 2).permute(0, 1, 3, 2, 4, 5)
+    return u.reshape(b, 8 * h, 8 * w, 2)
+
+
+class RAFT(nn.Module):
+    """RAFT (large) with the aimi-lab fork API; NHWC images in [0, 255]."""
+
+    def __init__(self, iters=12, dtype=torch.bfloat16, corr_dtype=torch.bfloat16):
+        super().__init__()
+        self.iters = iters
+        self.compute_dtype = dtype
+        self.corr_dtype = corr_dtype
+        self.fnet = BasicEncoder(256, "instance", dtype)
+        self.cnet = BasicEncoder(HDIM + CDIM, "batch", dtype)
+        self.update = nn.ModuleDict({"update_block": BasicUpdateBlock(dtype)})
+        self.up_mask = UpMaskHead(dtype)
+
+    @staticmethod
+    def _prep(images: Tensor) -> Tensor:
+        x = nchw(2.0 * (images / 255.0) - 1.0)
+        return x.contiguous(memory_format=torch.channels_last)
+
+    def encode_fnet(self, images: Tensor) -> Tensor:
+        """(B, H, W, 3) in [0, 255] -> (B, H/8, W/8, 256)."""
+        return nhwc(self.fnet(self._prep(images)))
+
+    def encode_cnet(self, images: Tensor):
+        """-> (net = tanh, inp = relu), each (B, H/8, W/8, 128)."""
+        c = nhwc(self.cnet(self._prep(images)))
+        return torch.tanh(c[..., :HDIM]), F.relu(c[..., HDIM:])
+
+    def flow_from_features(self, fmap1, fmap2, net, inp):
+        """Correlation + recurrent refinement from precomputed NHWC
+        features; returns (flow_up (B, H, W, 2), hidden, context) with the
+        hidden state and context NHWC f32."""
+        b, h8, w8, _ = fmap1.shape
+        f2_levels = [l.to(self.corr_dtype)
+                     for l in pool_fmap_pyramid(fmap2.float())]
+        f1 = fmap1.to(self.corr_dtype).contiguous()
+        ys, xs = torch.meshgrid(
+            torch.arange(h8, dtype=torch.float32, device=fmap1.device),
+            torch.arange(w8, dtype=torch.float32, device=fmap1.device),
+            indexing="ij")
+        coords0 = torch.stack([xs, ys], dim=-1)[None].expand(b, h8, w8, 2)
+        coords1 = coords0
+        net = nchw(net).to(self.compute_dtype)
+        inp_c = nchw(inp)
+        block = self.update["update_block"]
+        for _ in range(self.iters):
+            corr = onthefly_lookup(f1, f2_levels, coords1, radius=CORR_RADIUS)
+            flow = coords1 - coords0
+            net, delta = block(net, inp_c, corr, nchw(flow))
+            coords1 = coords1 + nhwc(delta)
+        flow8 = coords1 - coords0
+        flow_up = upsample_flow_convex(flow8, nhwc(self.up_mask(net)))
+        return flow_up, nhwc(net).float(), inp.float()
+
+    def forward(self, image1: Tensor, image2: Tensor):
+        b = image1.shape[0]
+        fmaps = self.encode_fnet(torch.cat([image1, image2], dim=0))
+        net, inp = self.encode_cnet(image1)
+        return self.flow_from_features(fmaps[:b], fmaps[b:], net, inp)

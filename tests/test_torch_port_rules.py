@@ -1,0 +1,93 @@
+"""Rules of the port: it never imports JAX, flax or the JAX package, and
+its entry points never fall back to the CPU on their own."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "robust_pose_tpu_torch"
+FORBIDDEN = ("jax", "flax", "robust_pose_tpu", "tests")
+
+
+def _modules():
+    return sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in PKG.rglob("*.py"))
+
+
+def test_importing_every_module_loads_no_jax():
+    """A fresh interpreter imports every module of the port (and runs
+    nothing else); afterwards neither jax, flax nor robust_pose_tpu is in
+    sys.modules."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'robust_pose_tpu'))\n"
+        "print('LOADED', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in
+                                        list(PKG.rglob("*.py"))
+                                        + [ROOT / "chip_smoke.py"]))
+def test_no_forbidden_import_statement(path):
+    """No import statement of the port or of chip_smoke.py names jax, flax,
+    the JAX package or the tests (including imports inside functions)."""
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}: import {name}"
+
+
+def test_entry_points_need_a_device_choice_without_cuda():
+    """Without a card and without device='cpu' the entry points raise."""
+    from robust_pose_tpu_torch.models.posenet import PoseNet
+    from robust_pose_tpu_torch.slam.pose_estimator import PoseEstimator
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: cuda is the default here")
+    cfg = {"image_shape": (64, 96), "iters": 1, "unet_levels": 1}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PoseNet(cfg)
+    ckpt = {"state_dict": {}, "config": {"model": cfg}}
+    slam = {"frame2frame": True, "lbgfs_iters": 5, "conf_weighing": True,
+            "depth_clipping": [1, 250]}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PoseEstimator(slam, np.eye(3), 1.0, ckpt, (96, 64))
+
+
+def test_frame_to_model_is_not_ported_yet():
+    from robust_pose_tpu_torch.slam.pose_estimator import PoseEstimator
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PoseEstimator({"frame2frame": False}, np.eye(3), 1.0, {}, (96, 64),
+                      device="cpu")
+
+
+def test_kernel_wrappers_take_plain_versions_only_on_cpu():
+    """A CPU tensor runs the plain version without touching the launch
+    counters; a tensor on any other non-CUDA device raises."""
+    from robust_pose_tpu_torch.ops import corr_onthefly, instance_norm, normal_eq
+
+    before = (corr_onthefly.launches, instance_norm.launches, normal_eq.launches)
+    instance_norm.instance_norm_stats(torch.ones(1, 4, 4, 8))
+    assert (corr_onthefly.launches, instance_norm.launches,
+            normal_eq.launches) == before
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        instance_norm.instance_norm_stats(torch.ones(1, 4, 4, 8, device="meta"))
