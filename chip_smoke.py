@@ -5,26 +5,42 @@
 
 Phases, each printing one JSON line:
 
-1. device   -- the card (nvidia-smi name and power limit, printed raw on
-               their own line), torch/CUDA versions, kernel build time
-               (nvcc over robust_pose_tpu_torch/csrc/*.cu, one process per
-               source, in parallel).
-2. kernels  -- each hand-written kernel against its plain PyTorch version on
-               the card at the shapes of the main path (512x640 f2f, 8-frame
-               windows): max error vs the stated tolerance, kernel time,
-               plain time, the time of one PyTorch library call computing
-               the same function where one exists, and the least time the
-               card could take (bytes over 3.35 TB/s or operations over the
-               peak rate of their type).
-3. slice    -- the port's f2f path at 64x96 in f32 with TF32 off, once on
-               the card through the kernels and once on the CPU through the
-               plain versions: poses, success flags and masks must agree.
-4. main     -- production f2f at full width (512x640, T = 8, 12 GRU
-               iterations, 20 LM iterations, confidence heads, 3 UNet
-               levels, bf16 mixed precision), random seeded weights, the
-               synthetic sequence of bench.py: first frame, 2 warm-up and 4
-               timed windows with every launch counter set to 0 just before
-               and read just after; then a bf16-vs-f32 pose check.
+1. device      -- the card (nvidia-smi name and power limit, printed raw on
+                  their own line), torch/CUDA versions, kernel build time
+                  (nvcc over robust_pose_tpu_torch/csrc/*.cu, one process per
+                  source, in parallel).
+2. kernels     -- each hand-written kernel against its plain PyTorch version
+                  on the card at the shapes of its path (K1-K3: 512x640 f2f,
+                  8-frame windows; K4-K5: the training step at batch 8):
+                  max error vs the stated tolerance, kernel time, plain
+                  time, the time of one PyTorch library call computing the
+                  same function where one exists, and the least time the
+                  card could take (bytes over 3.35 TB/s or operations over
+                  the peak rate of their type).
+3. slice       -- the port's f2f path at 64x96 in f32 with TF32 off, once on
+                  the card through the kernels and once on the CPU through
+                  the plain versions: poses, success flags and masks must
+                  agree.
+4. main        -- production f2f at full width (512x640, T = 8, 12 GRU
+                  iterations, 20 LM iterations, confidence heads, 3 UNet
+                  levels, bf16 mixed precision), random seeded weights, the
+                  synthetic sequence of bench.py: first frame, 2 warm-up and
+                  4 timed windows with every launch counter set to 0 just
+                  before and read just after; then a bf16-vs-f32 pose check.
+5. profile     -- one more main-path window under torch.profiler.
+6. train_slice -- one PoseNetTrainer step with live RAFT gradients through
+                  the lane-wise lookup at 64x96 in f32, on the card (kernels)
+                  and on the CPU (plain versions), from the same weights and
+                  batch: loss, every gradient and the updated parameters
+                  must agree.
+7. train       -- the training step at full width, configuration/train.yaml
+                  (512x640, batch 8, 12 GRU iterations, 100 LM iterations,
+                  weight heads, bf16): (a) RAFT frozen and cut off
+                  (stop_flow_grad), (b) RAFT live through the lane-wise
+                  lookup (freeze_flow_steps 0, remat). Each: 1 warm-up and 2
+                  timed steps with the launch counters set to 0 just before
+                  and read just after, then one step under torch.profiler
+                  (train_profile) by stage of PoseNetTrainer.train_step.
 
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 Every failed check raises: the script exits non-zero and prints no result.
@@ -40,6 +56,8 @@ import numpy as np
 H, W = 512, 640
 T_WINDOW = 8
 N_TIMED = 4                   # timed windows of the main path
+TRAIN_BATCH = 8               # configuration/train.yaml's batch_size
+TRAIN_TIMED = 2               # timed training steps per configuration
 FX = 500.0
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 BF16_FLOPS = 989e12           # dense tensor-core bf16
@@ -118,7 +136,8 @@ def phase_device():
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
     libs = _build.build_all()
-    require(set(libs) == {"corr_onthefly", "normal_eq"}, f"built {set(libs)}")
+    require(set(libs) == {"corr_onthefly", "normal_eq", "corr_lanewise"},
+            f"built {set(libs)}")
     ptxas = {k: [l.strip() for l in v.splitlines() if "registers" in l]
              for k, v in _build.build_log.items()}
     emit({"phase": "device", "nvidia_smi": smi,
@@ -330,11 +349,168 @@ def kernel_normal_eq(dev):
             "bytes": nbytes, "ops": ops}
 
 
+def lanewise_inputs(dev):
+    """K4/K5 inputs at the training step's shapes: B = 3 x 8 RAFT pairs,
+    N = 64 x 80 queries, the 4-level transposed bf16 volume of random
+    C = 256 features, centres near the identity with 200 queries a window
+    off the level."""
+    import torch
+
+    from robust_pose_tpu_torch.ops import corr_lanewise as L
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    b, h8, w8, c = 3 * TRAIN_BATCH, H // 8, W // 8, 256
+    f1 = torch.randn(b, h8, w8, c, generator=g, device=dev)
+    f2 = torch.randn(b, h8, w8, c, generator=g, device=dev)
+    pyramid = L.build_corr_pyramid_t(f1, f2, dtype=torch.bfloat16)
+    ys, xs = torch.meshgrid(torch.arange(h8, device=dev, dtype=torch.float32),
+                            torch.arange(w8, device=dev, dtype=torch.float32),
+                            indexing="ij")
+    coords = torch.stack([xs, ys], -1).reshape(1, -1, 2) + 4.0 * torch.randn(
+        b, h8 * w8, 2, generator=g, device=dev)
+    coords[:, :200] -= 40.0
+    grads = [torch.randn(b, 81, h8 * w8, generator=g, device=dev)
+             for _ in pyramid]
+    return pyramid, coords.contiguous(), grads
+
+
+def lanewise_taps(pyramid, coords):
+    """In-level taps of the (2r+2)^2 = 100 each window touches, summed over
+    queries and levels: what this run's data needs read."""
+    import torch
+
+    n = 0
+    for lvl, v in enumerate(pyramid):
+        hl, wl = v.shape[1:3]
+        x0 = torch.floor(coords[..., 0] / 2 ** lvl) - 4
+        y0 = torch.floor(coords[..., 1] / 2 ** lvl) - 4
+        dd = torch.arange(10, device=coords.device)
+        ny = ((y0[..., None] + dd >= 0) & (y0[..., None] + dd < hl)).sum(-1)
+        nx = ((x0[..., None] + dd >= 0) & (x0[..., None] + dd < wl)).sum(-1)
+        n += int((ny * nx).sum())
+    return n
+
+
+def grid_sample_yardstick(pyramid, coords):
+    """Upstream RAFT's CorrBlock lookup on the same volumes and centres:
+    F.grid_sample(align_corners=True, zeros) over (B*N, 1, Hl, Wl) f32
+    volumes with a 9 x 9 grid per query (dy-major). Returns the f32 volumes
+    and grids (made outside the timed call) and the call."""
+    import torch
+    import torch.nn.functional as F
+
+    b, _, _, n = pyramid[0].shape
+    dd = torch.arange(-4, 5, device=coords.device, dtype=torch.float32)
+    vols, grids = [], []
+    for lvl, v in enumerate(pyramid):
+        hl, wl = v.shape[1:3]
+        vols.append(v.permute(0, 3, 1, 2).reshape(b * n, 1, hl, wl).float())
+        c = coords.reshape(b * n, 1, 1, 2) / 2 ** lvl
+        x = (c[..., 0] + dd[None, None, :]).expand(b * n, 9, 9)
+        y = (c[..., 1] + dd[None, :, None]).expand(b * n, 9, 9)
+        grids.append(torch.stack([2.0 * x / (wl - 1) - 1.0,
+                                  2.0 * y / (hl - 1) - 1.0], -1).contiguous())
+
+    def call(vols=vols, grids=grids):
+        return [F.grid_sample(v, gr, mode="bilinear", padding_mode="zeros",
+                              align_corners=True) for v, gr in zip(vols, grids)]
+
+    return vols, grids, call
+
+
+def kernel_lanewise(dev):
+    """K4 and K5 at the training step's shapes (4 levels per call), against
+    their plain versions on the card and timed beside upstream RAFT's
+    grid_sample lookup and its autograd backward."""
+    import torch
+
+    from robust_pose_tpu_torch.ops import corr_lanewise as L
+
+    pyramid, coords, grads = lanewise_inputs(dev)
+    b, _, _, n = pyramid[0].shape
+    scales = [float(2 ** l) for l in range(len(pyramid))]
+    fwd = lambda: [L.lanewise_fwd(v, coords, 4, s) for v, s in zip(pyramid, scales)]
+    fwd_plain = lambda: [L.lanewise_fwd_plain(v, coords, 4, s)
+                         for v, s in zip(pyramid, scales)]
+    bwd = lambda: [L.lanewise_bwd(v, coords, g, 4, s)
+                   for v, g, s in zip(pyramid, grads, scales)]
+    bwd_plain = lambda: [L.lanewise_bwd_plain(v, coords, g, 4, s)
+                         for v, g, s in zip(pyramid, grads, scales)]
+    saved = (L.launches, L.bwd_launches)
+    # K4: the kernel rounds each product and sum as the plain version's
+    # separate multiplies and adds do (no FMA contraction)
+    out_k, out_p = fwd(), fwd_plain()
+    err4 = max(float((k - p).abs().max()) for k, p in zip(out_k, out_p))
+    require(err4 <= 1e-6, f"lanewise forward max |err| {err4} > 1e-6")
+    # K5: dcorr rounds alike (tol 1e-6 of its largest); dcoords sums 100
+    # products per window row in another order (rel 1e-5 of the largest)
+    res_k, res_p = bwd(), bwd_plain()
+    scale_c = max(float(p[0].float().abs().max()) for p in res_p)
+    err5c = max(float((k[0].float() - p[0].float()).abs().max())
+                for k, p in zip(res_k, res_p))
+    scale_x = max(float(p[1].abs().max()) for p in res_p)
+    err5x = max(float((k[1] - p[1]).abs().max()) for k, p in zip(res_k, res_p))
+    require(err5c <= 1e-6 * scale_c, f"lanewise dcorr max |err| {err5c}")
+    require(err5x <= 1e-5 * scale_x, f"lanewise dcoords max |err| {err5x}")
+    del out_k, out_p, res_k, res_p
+    ms4 = cuda_time_ms(fwd)
+    ms5 = cuda_time_ms(bwd)
+    L.launches, L.bwd_launches = saved
+    plain4 = cuda_time_ms(fwd_plain, reps=3, warmup=1)
+    plain5 = cuda_time_ms(bwd_plain, reps=3, warmup=1)
+    vols, grids, lib = grid_sample_yardstick(pyramid, coords)
+    lib_err = max(float((o.reshape(b, n, 81).transpose(1, 2) - p).abs().max())
+                  for o, p in zip(lib(), fwd_plain()))
+    lib4 = cuda_time_ms(lib, reps=5)
+    vols = [v.requires_grad_() for v in vols]
+    grids = [gr.requires_grad_() for gr in grids]
+    outs = lib(vols, grids)
+    gouts = [g.transpose(1, 2).reshape(o.shape).contiguous()
+             for g, o in zip(grads, outs)]
+    lib5 = cuda_time_ms(lambda: torch.autograd.grad(
+        outs, vols + grids, gouts, retain_graph=True), reps=5)
+    del vols, grids, outs, gouts, lib
+    taps = lanewise_taps(pyramid, coords)
+    vol_bytes = sum(v.numel() * v.element_size() for v in pyramid)
+    # K4 bytes: the in-level taps (bf16), the centres, the f32 outputs;
+    # operations: 3 per tap row entry and 3 per output (f32)
+    bytes4 = taps * 2 + coords.numel() * 4 + len(pyramid) * b * 81 * n * 4
+    ops4 = len(pyramid) * b * n * (9 * 10 * 3 + 81 * 3)
+    # K5 bytes: the dense dcorr write (bf16), the taps, the centres, the
+    # output cotangents and the centre cotangents (f32)
+    bytes5 = (vol_bytes + taps * 2 + coords.numel() * 4
+              + len(pyramid) * b * 81 * n * 4 + len(pyramid) * b * n * 2 * 4)
+    ops5 = len(pyramid) * b * n * (10 * 10 * 3 + 9 * 10 * 8)
+    out = []
+    for name, rep, err, ms, plain, lib_ms, nbytes, ops, unit in (
+            ("lanewise_lookup", "robust_pose_tpu/ops/pallas_lookup_lanewise.py:72",
+             err4, ms4, plain4, lib4, bytes4, ops4, "one 4-level lookup (4 launches)"),
+            ("lanewise_lookup_bwd",
+             "robust_pose_tpu/ops/pallas_lookup_lanewise.py:153",
+             max(err5c, err5x), ms5, plain5, lib5, bytes5, ops5,
+             "one 4-level lookup backward (4 launches)")):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+        out.append({"name": name, "route": "cuda",
+                    "source": "robust_pose_tpu_torch/csrc/corr_lanewise.cu",
+                    "replaces": rep, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain, "bound_ms": max(t_b, t_o) * 1e3,
+                    "bound_by": "bytes" if t_b >= t_o else "operations",
+                    "library_ms": lib_ms, "unit": unit, "bytes": nbytes,
+                    "ops": ops, "taps_in_level": taps})
+    out[0]["library_max_abs_diff"] = lib_err
+    out[1]["err"] = {"dcorr": err5c, "dcorr_tol": 1e-6 * scale_c,
+                     "dcoords": err5x, "dcoords_tol": 1e-5 * scale_x}
+    del pyramid, coords, grads
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels(dev):
     import torch
 
     t0 = time.perf_counter()
-    out = [kernel_corr(dev), kernel_instance_norm(dev), kernel_normal_eq(dev)]
+    out = [kernel_corr(dev), kernel_instance_norm(dev), kernel_normal_eq(dev),
+           *kernel_lanewise(dev)]
     torch.cuda.synchronize()
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
           "kernels": out})
@@ -516,6 +692,8 @@ KERNEL_GROUPS = (            # (group, substrings of the device kernel name)
     ("corr_window_lookup (K1)", ("corr_window",)),
     ("instance_norm_stats (K2)", ("_stats_partial", "_stats_finish")),
     ("normal_eq (K3)", ("normal_eq",)),
+    ("lanewise_lookup (K4)", ("lanewise_fwd",)),
+    ("lanewise_lookup_bwd (K5)", ("lanewise_bwd",)),
     ("convolutions and products", ("conv", "cudnn", "xmma", "gemm", "sm90_",
                                    "cutlass", "implicit")),
     ("elementwise, reductions, copies", ("elementwise", "vectorized",
@@ -535,12 +713,16 @@ def _top(ms_by_name, n):
             sorted(ms_by_name.items(), key=lambda kv: -kv[1])[:n]]
 
 
-def phase_profile(est, window, masks):
-    """One more main-path window under torch.profiler. Prints the share of
-    the window's wall time in which the card ran no kernel, and the kernel
-    time by group, by name and by stage of PoseNet.infer_window (its
-    record_function spans: the kernels launched inside each span, and the
-    span's extent on the device timeline, gaps included)."""
+def profile_run(run, span_prefix):
+    """``run()`` under torch.profiler: the share of its wall time in which
+    the card ran no kernel, and the kernel time by group, by name and by
+    stage. A stage is a record_function span named ``span_prefix*``; the
+    work runs on one stream in order, so a stage's device window reaches
+    from the start of its span on the device timeline to the start of the
+    next span, and every kernel that starts in it (hand-written ones and
+    those of the autograd thread included) counts for the stage. If the
+    profiler saw no kernel, only the wall time, with the device time
+    marked "not measured"."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -549,18 +731,16 @@ def phase_profile(est, window, masks):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        est.track_window(window[0], window[1], masks)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
-    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     is_span = lambda e: (getattr(e, "is_user_annotation", False)
-                         or e.name.startswith("infer_window."))
+                         or e.name.startswith(span_prefix))
     kernels = [e for e in device if not is_span(e)]
     if not kernels:
-        emit({"phase": "profile", "wall_ms": wall_ms,
-              "device_time": "not measured: the profiler saw no kernel"})
-        return
+        return {"wall_ms": wall_ms,
+                "device_time": "not measured: the profiler saw no kernel"}
     busy_us, end = 0.0, -float("inf")
     for s, e in sorted((k.time_range.start, k.time_range.end)
                        for k in kernels):     # union of kernel intervals
@@ -573,30 +753,310 @@ def phase_profile(est, window, masks):
         by_name[k.name] = by_name.get(k.name, 0.0) + ms
         g = _kernel_group(k.name)
         groups[g] = groups.get(g, 0.0) + ms
-
-    def launched_in(ev):                       # kernels of a CPU span's subtree
-        out = list(ev.kernels)
-        for ch in ev.cpu_children:
-            out += launched_in(ch)
-        return out
-
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in device if is_span(e) and e.name.startswith(span_prefix))
     stages = {}
-    for ev in events:
-        if ev.device_type == DeviceType.CPU and ev.name.startswith("infer_window."):
-            ks = launched_in(ev)
-            names = {}
-            for k in ks:
-                names[k.name] = names.get(k.name, 0.0) + k.duration / 1e3
-            stages[ev.name] = {"kernel_ms": sum(names.values()),
-                               "launches": len(ks), "top": _top(names, 4)}
-    for e in device:
-        if e.name in stages and is_span(e):
-            stages[e.name]["device_span_ms"] = e.time_range.elapsed_us() / 1e3
-    emit({"phase": "profile", "window": T_WINDOW, "wall_ms": wall_ms,
-          "device_busy_ms": busy_us / 1e3,
-          "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
-          "kernel_launches": len(kernels), "stages": stages,
-          "group_ms": groups, "top_kernels_ms": _top(by_name, 12)})
+    for i, (s0, e0, name) in enumerate(spans):
+        s1 = spans[i + 1][0] if i + 1 < len(spans) else e0
+        st = stages.setdefault(name, {"device_ms": 0.0, "kernel_ms": 0.0,
+                                      "launches": 0, "names": {}})
+        st["device_ms"] += (s1 - s0) / 1e3
+        for k in kernels:
+            if s0 <= k.time_range.start < s1:
+                ms = k.time_range.elapsed_us() / 1e3
+                st["kernel_ms"] += ms
+                st["launches"] += 1
+                st["names"][k.name] = st["names"].get(k.name, 0.0) + ms
+    for st in stages.values():
+        st["top"] = _top(st.pop("names"), 4)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+            "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+            "kernel_launches": len(kernels), "stages": stages,
+            "group_ms": groups, "top_kernels_ms": _top(by_name, 12)}
+
+
+def phase_profile(est, window, masks):
+    """One more main-path window under torch.profiler, by stage of
+    PoseNet.infer_window."""
+    emit({"phase": "profile", "window": T_WINDOW,
+          **profile_run(lambda: est.track_window(window[0], window[1], masks),
+                        "infer_window.")})
+
+
+# ---------------------------------------------------------------------------
+# phases 6 and 7
+# ---------------------------------------------------------------------------
+
+def read_train_yaml(path):
+    """The mappings, lists and scalars of configuration/train.yaml (block
+    style, as that file is written) without a YAML package."""
+    def scalar(v):
+        for conv in (int, float):
+            try:
+                return conv(v)
+            except ValueError:
+                pass
+        return {"True": True, "False": False}.get(v, v)
+
+    root = {}
+    stack = [[-1, root, None, None]]     # [indent, container, owner, key]
+    for raw in open(path).read().splitlines():
+        if not raw.strip() or raw.lstrip().startswith("#"):
+            continue
+        ind = len(raw) - len(raw.lstrip())
+        line = raw.strip()
+        while ind <= stack[-1][0]:
+            stack.pop()
+        top = stack[-1]
+        if line.startswith("- "):
+            if top[1] == {}:                 # "key:" followed by a list
+                top[1] = top[2][top[3]] = []
+            top[1].append(scalar(line[2:].strip()))
+            continue
+        key, _, val = line.partition(":")
+        if val.strip():
+            top[1][key] = scalar(val.strip())
+        else:
+            top[1][key] = {}
+            stack.append([ind, top[1][key], top[1], key])
+    return root
+
+
+def spy_grads(trainer):
+    """Record the gradients the trainer's optimizer receives."""
+    seen = []
+    update = trainer.optimizer.update
+
+    def spy(params, grads, opt_state):
+        seen.append({k: None if g is None else g.detach().float().cpu().clone()
+                     for k, g in grads.items()})
+        return update(params, grads, opt_state)
+
+    trainer.optimizer.update = spy
+    return seen
+
+
+def launch_counts():
+    from robust_pose_tpu_torch.ops import corr_lanewise as L
+    from robust_pose_tpu_torch.ops import corr_onthefly as K1
+    from robust_pose_tpu_torch.ops import instance_norm as K2
+    from robust_pose_tpu_torch.ops import normal_eq as K3
+
+    return {"corr_window_lookup": K1.launches, "instance_norm_stats": K2.launches,
+            "normal_eq": K3.launches, "lanewise_lookup": L.launches,
+            "lanewise_lookup_bwd": L.bwd_launches}
+
+
+def zero_launch_counts():
+    from robust_pose_tpu_torch.ops import corr_lanewise as L
+    from robust_pose_tpu_torch.ops import corr_onthefly as K1
+    from robust_pose_tpu_torch.ops import instance_norm as K2
+    from robust_pose_tpu_torch.ops import normal_eq as K3
+
+    K1.launches = K2.launches = K3.launches = 0
+    L.launches = L.bwd_launches = 0
+
+
+def phase_train_slice(dev):
+    """One live-RAFT training step (lane-wise lookup) at 64x96 in f32 on
+    the card and on the CPU from the same weights and batch. Loss rtol
+    1e-4; every gradient within 5e-3 of its leaf's norm in L2 and within
+    5e-2 of its leaf's largest element (a pixel whose depth validity or
+    flow bound sits on a threshold can fall on either side on the two
+    devices and move a few elements of a high-resolution encoder kernel by
+    ~1%), each plus 2e-5 of the largest of all; updated parameters within
+    1e-3 lr where the gradient is above twice its elementwise tolerance
+    and within 2 lr everywhere."""
+    import torch
+
+    from robust_pose_tpu_torch.train.trainer import PoseNetTrainer
+
+    h, w, b, lr = 64, 96, 2, 1e-4
+    model_cfg = {"iters": 2, "lbgfs_iters": 50, "use_weights": True,
+                 "mixed_precision": False, "unet_levels": 1, "dropout": 0.0,
+                 "lookup": "lanewise"}
+    cfg = {"model": model_cfg, "image_shape": [h, w],
+           "train": {"learning_rate": lr, "weight_decay": 5e-5,
+                     "epsilon": 1e-8, "grad_clip": 1.0, "freeze_flow_steps": 0}}
+    sd = small_state_dict(dict(model_cfg, image_shape=(h, w)), seed=21)
+    rng = np.random.default_rng(1)
+    img = lambda: rng.uniform(0, 255, (b, 3, h, w)).astype(np.float32)
+    gt = np.zeros((b, 7), np.float32)
+    gt[:, 6], gt[:, 0] = 1.0, 0.01
+    K = np.tile(np.float32([[100.0, 0, w / 2], [0, 100.0, h / 2], [0, 0, 1]]),
+                (b, 1, 1))
+    mask = np.ones((b, 1, h, w), bool)
+    batch = (img(), img(), img(), img(), mask, mask, gt, K,
+             np.ones((b,), np.float32))
+    res = {}
+    for where in ("cuda", "cpu"):
+        tr = PoseNetTrainer(cfg, device=dev if where == "cuda" else "cpu")
+        st = tr.init_state(sd)
+        seen = spy_grads(tr)
+        zero_launch_counts()
+        st, m = tr.train_step(st, batch)
+        res[where] = {"loss": float(m["train/loss_total"]),
+                      "grad_norm": float(m["train/grad_norm"]),
+                      "grads": seen[0], "launches": launch_counts(),
+                      "params": {k: v.detach().cpu() for k, v in st.params.items()}}
+    c, p = res["cuda"], res["cpu"]
+    require(abs(c["loss"] - p["loss"]) <= 1e-4 * abs(p["loss"]),
+            f"train_slice: loss {c['loss']} vs {p['loss']}")
+    live = [g for g in p["grads"].values() if g is not None]
+    floor = 2e-5 * max(float(g.abs().max()) for g in live)
+    floor2 = 2e-5 * max(float(g.norm()) for g in live)
+    worst = {"grad_l2": 0.0, "grad_max": 0.0, "param": 0.0}
+    for k, gp in p["grads"].items():
+        gc = c["grads"][k]
+        require((gc is None) == (gp is None), f"train_slice: gradient of {k}")
+        if gp is None:
+            continue
+        tol2 = 5e-3 * float(gp.norm()) + floor2
+        err2 = float((gc - gp).norm())
+        require(err2 <= tol2, f"train_slice: gradient of {k}: L2 {err2} > {tol2}")
+        atol = 5e-2 * float(gp.abs().max()) + floor
+        err = float((gc - gp).abs().max())
+        require(err <= atol, f"train_slice: gradient of {k}: {err} > {atol}")
+        worst["grad_l2"] = max(worst["grad_l2"], err2 / tol2)
+        worst["grad_max"] = max(worst["grad_max"], err / atol)
+        d = (c["params"][k] - p["params"][k]).abs()
+        big = gp.abs() > 2 * atol
+        require(float(d.max()) <= 2 * lr, f"train_slice: update of {k}")
+        if bool(big.any()):
+            require(float(d[big].max()) <= 1e-3 * lr, f"train_slice: update of {k}")
+            worst["param"] = max(worst["param"], float(d[big].max()) / (1e-3 * lr))
+    require(p["grads"]["flow.fnet.conv1.weight"].abs().max() > 0,
+            "train_slice: no RAFT gradient")
+    lc = c["launches"]
+    require(lc["lanewise_lookup"] > 0 and lc["lanewise_lookup_bwd"] > 0
+            and lc["instance_norm_stats"] > 0 and lc["normal_eq"] > 0
+            and lc["corr_window_lookup"] == 0, f"train_slice: launches {lc}")
+    require(not any(p["launches"].values()), f"train_slice: CPU launches")
+    emit({"phase": "train_slice", "shape": [h, w], "batch": b,
+          "loss_cuda": c["loss"], "loss_cpu": p["loss"],
+          "grad_norm_cuda": c["grad_norm"], "grad_norm_cpu": p["grad_norm"],
+          "worst_error_over_tolerance": worst, "launches_cuda": lc})
+
+
+def train_batch_full(dev, disparity=8, step=3, baseline=4.0):
+    """A batch of TRAIN_BATCH frame pairs from make_sequence: a camera
+    translating along x by ``step`` px a frame over a fronto-parallel
+    texture at normalized depth baseline / disparity; the ground truth is
+    that translation."""
+    import torch
+
+    ls, rs = make_sequence(TRAIN_BATCH + 1, disparity=disparity, step=step, seed=9)
+    nchw = lambda a: torch.from_numpy(
+        np.ascontiguousarray(a[:, 0].transpose(0, 3, 1, 2))).float().to(dev)
+    b = TRAIN_BATCH
+    mask = torch.ones((b, 1, H, W), dtype=torch.bool, device=dev)
+    depth = baseline / disparity
+    gt = torch.zeros((b, 7), device=dev)
+    gt[:, 0] = -step * depth / FX          # content moves left: x' = x - t
+    gt[:, 6] = 1.0
+    K = torch.tensor([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]],
+                     device=dev).expand(b, 3, 3).contiguous()
+    bl = torch.full((b,), baseline, device=dev)
+    return (nchw(ls[:-1]), nchw(ls[1:]), nchw(rs[:-1]), nchw(rs[1:]), mask,
+            mask, gt, K, bl)
+
+
+def phase_train(dev, smi):
+    """configuration/train.yaml at full width, batch 8, bf16, in two
+    configurations: (a) RAFT frozen and cut off (train.stop_flow_grad set:
+    with the file's freeze_flow_steps of 1e18, which is not None, the JAX
+    trainer's defaults would keep RAFT's gradients live), (b) RAFT live
+    through the lane-wise lookup (freeze_flow_steps 0, lookup lanewise,
+    remat by default on the card). Random seeded weights, the flow head
+    biased as bench.py does and its kernel damped x0.1, so depth is valid
+    and RAFT's gradients also pass through the flow deltas."""
+    import copy
+
+    import torch
+
+    from robust_pose_tpu_torch.models.posenet import PoseNet
+    from robust_pose_tpu_torch.train.trainer import PoseNetTrainer
+
+    y = read_train_yaml("configuration/train.yaml")
+    require(y["train"]["batch_size"] == TRAIN_BATCH
+            and tuple(y["image_shape"]) == (H, W), "train.yaml changed")
+    base = {"model": dict(y["model"]), "image_shape": y["image_shape"],
+            "train": dict(y["train"])}
+    cfg_a = copy.deepcopy(base)
+    cfg_a["train"]["stop_flow_grad"] = True
+    cfg_b = copy.deepcopy(base)
+    cfg_b["train"]["freeze_flow_steps"] = 0
+    cfg_b["model"]["lookup"] = "lanewise"
+    iters = base["model"]["iters"]
+    m = PoseNet(dict(base["model"], image_shape=(H, W)), device="cpu")
+    m.reset_parameters(torch.Generator().manual_seed(0))
+    fh = m.flow.update["update_block"].flow_head.conv2
+    with torch.no_grad():
+        fh.weight.mul_(0.1)
+        fh.bias.copy_(torch.tensor([-8.0 / (8.0 * iters), 0.0]))
+    sd = m.state_dict()
+    del m
+    batch = train_batch_full(dev)
+    results = {}
+    for name, cfg in (("a", cfg_a), ("b", cfg_b)):
+        tr = PoseNetTrainer(cfg, device=dev)
+        st = tr.init_state(sd)
+        flow0 = {k: v.detach().clone() for k, v in st.params.items()
+                 if k.startswith("flow.")}
+        st, _ = tr.train_step(st, batch)                        # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        metrics = []
+        for _ in range(TRAIN_TIMED):
+            st, mt = tr.train_step(st, batch)
+            metrics.append(mt)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = launch_counts()
+        loss = [float(mt["train/loss_total"]) for mt in metrics]
+        gnorm = [float(mt["train/grad_norm"]) for mt in metrics]
+        it = tr.last_solver_iters.cpu()
+        moved = [k for k, v in flow0.items()
+                 if not torch.equal(st.params[k].detach(), v)]
+        per_step = {k: v / TRAIN_TIMED for k, v in launches.items()}
+        require(all(np.isfinite(loss)) and all(np.isfinite(gnorm)),
+                f"train {name}: loss {loss}, grad norm {gnorm}")
+        require(min(gnorm) > 0, f"train {name}: zero gradient norm {gnorm}")
+        require(per_step["normal_eq"] >= 2 and per_step["instance_norm_stats"] > 0,
+                f"train {name}: launches {launches}")
+        if name == "a":
+            require(per_step["lanewise_lookup"] == 0
+                    and per_step["lanewise_lookup_bwd"] == 0
+                    and per_step["corr_window_lookup"] == 4 * iters,
+                    f"train a: launches {launches}")
+            require(not moved, f"train a: RAFT parameters moved: {moved[:3]}")
+        else:
+            require(per_step["lanewise_lookup_bwd"] == 4 * iters
+                    and per_step["lanewise_lookup"] >= 4 * iters
+                    and per_step["corr_window_lookup"] == 0,
+                    f"train b: launches {launches}")
+            require(len(moved) == len(flow0),
+                    f"train b: {len(flow0) - len(moved)} RAFT parameters still")
+        results[name] = launches
+        emit({"phase": "train", "config": name, "card": smi,
+              "shape": [H, W], "batch": TRAIN_BATCH,
+              "model": {k: tr.model.config.get(k, True) for k in
+                        ("iters", "lbgfs_iters", "stop_flow_grad", "remat",
+                         "lookup", "mixed_precision", "use_weights")},
+              "timed_steps": TRAIN_TIMED, "step_s": dt / TRAIN_TIMED,
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "loss_total": loss, "grad_norm": gnorm,
+              "launches_per_step": per_step,
+              "lm_iters": {"mean": float(it.float().mean()), "max": int(it.max()),
+                           "min": int(it.min())},
+              "raft_params_moved": len(moved), "raft_params": len(flow0)})
+        emit({"phase": "train_profile", "config": name,
+              **profile_run(lambda: tr.train_step(st, batch), "train_step.")})
+        del tr, st, flow0
+        torch.cuda.empty_cache()
+    return results
 
 
 def main():
@@ -612,6 +1072,12 @@ def main():
     kernels = phase_kernels(dev)
     phase_slice(dev)
     launches = phase_main(dev, smi)
+    phase_train_slice(dev)
+    train = phase_train(dev, smi)
+    # each kernel's launches on its own path: K1-K3 in the f2f main path,
+    # K4-K5 in the training step with live RAFT
+    launches.update({k: train["b"][k] for k in ("lanewise_lookup",
+                                                 "lanewise_lookup_bwd")})
     for k in kernels:
         k["launches"] = launches[k["name"]]
     emit({"kernels": [{key: k[key] for key in (

@@ -1,10 +1,11 @@
-"""Convolution and frozen BatchNorm layers with a compute dtype.
+"""Convolution and BatchNorm layers with a compute dtype.
 
 Parameters stay f32; a layer built with ``dtype=torch.bfloat16`` runs its
 convolution in bf16 (the JAX package's ``nn.Conv(dtype=bf16)`` mixed
-precision). The cast weights are cached and rebuilt only when a parameter
-changes (its version counter or storage), so a forward pass does not pay
-one cast per layer.
+precision). Outside autograd the cast weights are cached and rebuilt only
+when a parameter changes (its version counter or storage), so a forward
+pass does not pay one cast per layer; while autograd records, the cast is
+part of the graph, so the gradient reaches the f32 parameter.
 """
 from __future__ import annotations
 
@@ -17,9 +18,14 @@ Tensor = torch.Tensor
 
 def cached_cast(owner: nn.Module, tensors, dtype, make=None,
                 slot: str = "_cast_cache"):
-    """``make(*tensors)`` (default: ``tensors``) cast to ``dtype``, cached
-    in ``owner.<slot>`` until one of ``tensors`` changes (in-place updates
-    bump the version counter, ``.to(device)`` the storage)."""
+    """``make(*tensors)`` (default: ``tensors``) cast to ``dtype``. When
+    grad mode is on and a tensor requires grad the result is computed in
+    the graph; otherwise it is cached in ``owner.<slot>`` until one of
+    ``tensors`` changes (in-place updates bump the version counter,
+    ``.to(device)`` the storage)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        vals = make(*tensors) if make is not None else tensors
+        return tuple(v.to(dtype) for v in vals)
     key = (dtype,) + tuple((t._version, t.data_ptr()) for t in tensors)
     cache = owner.__dict__.get(slot)
     if cache is None or cache[0] != key:
@@ -57,9 +63,19 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
 
 class BatchNorm(nn.Module):
-    """Frozen BatchNorm2d on running statistics (flax ``BatchNorm`` with
-    ``use_running_average``): ``(x - mean) * (weight * rsqrt(var + eps)) +
-    bias``, computed in f32 and cast to the input dtype. NCHW."""
+    """BatchNorm over NCHW with flax ``BatchNorm``'s semantics, computed in
+    f32 and cast to the input dtype: ``(x - mean) * (weight * rsqrt(var +
+    eps)) + bias``.
+
+    ``forward(x)`` uses the running statistics (flax
+    ``use_running_average=True``; the RAFT encoders always do). With
+    ``train=True`` it uses the batch mean and the biased batch variance
+    ``max(E[x^2] - E[x]^2, 0)`` and updates the running statistics as flax
+    does, ``ra = 0.99 ra + 0.01 batch`` (flax's momentum 0.99) with the
+    biased variance (``F.batch_norm`` would use the unbiased one and
+    torch's momentum convention)."""
+
+    MOMENTUM = 0.99
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -69,8 +85,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x: Tensor) -> Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = ((x.float() - self.running_mean[:, None, None]) * mul[:, None, None]
-             + self.bias[:, None, None])
+    def forward(self, x: Tensor, train: bool = False) -> Tensor:
+        xf = x.float()
+        if train:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                              min=0.0)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(x.dtype)

@@ -1,10 +1,14 @@
-"""PoseNet inference: RAFT flow + TinyUNet confidence heads + LM pose solve
-(port of the inference methods of ``robust_pose_tpu/models/posenet.py``).
+"""PoseNet: RAFT flow + TinyUNet confidence heads + LM pose solve with an
+implicit-function-theorem backward (port of
+``robust_pose_tpu/models/posenet.py``: the inference methods and the
+training forward ``__call__``).
 
 NHWC tensors, images in [0, 255]. Config keys: image_shape (H, W), iters,
 lbgfs_iters, use_weights, mixed_precision (bf16 convs and correlation
-features, f32 parameters), unet_levels, solver_early_exit. The training
-forward and the frame-to-model methods wait for later slices.
+features, f32 parameters), unet_levels, solver_early_exit, and for
+training lookup (``models.raft``), remat, stop_flow_grad and dropout (0
+only). Not ported yet, and refused: small, dropout > 0, remat_policy
+"dots" (ROADMAP). The frame-to-model methods wait for a later slice.
 """
 from __future__ import annotations
 
@@ -24,7 +28,11 @@ from robust_pose_tpu_torch.ops.warp import (
     warp_pcl_mask,
     warp_then_eighth,
 )
-from robust_pose_tpu_torch.solver.gauss_newton import SolverConfig, solve_pose
+from robust_pose_tpu_torch.solver.gauss_newton import (
+    SolverConfig,
+    pose_layer,
+    solve_pose,
+)
 from robust_pose_tpu_torch.solver.objectives import PoseProblemInputs
 
 Tensor = torch.Tensor
@@ -47,10 +55,20 @@ class PoseNet(nn.Module):
     def __init__(self, config: dict, device=None):
         super().__init__()
         self.config = dict(config)
+        for key, bad, what in (("small", True, "the small RAFT variant"),
+                               ("remat_policy", "dots", "remat_policy 'dots'")):
+            if config.get(key) == bad:
+                raise NotImplementedError(f"{what} is not ported yet: see "
+                                          "ROADMAP.md, 'Next slices' 2")
+        if config.get("dropout", 0.0) > 0.0:
+            raise NotImplementedError("dropout > 0 is not ported yet: see "
+                                      "ROADMAP.md, 'Next slices' 2")
         H, W = config["image_shape"]
         mp = config.get("mixed_precision", True)
         dt = torch.bfloat16 if mp else torch.float32
-        self.flow = RAFT(iters=config.get("iters", 12), dtype=dt, corr_dtype=dt)
+        self.flow = RAFT(iters=config.get("iters", 12), dtype=dt, corr_dtype=dt,
+                         lookup=config.get("lookup", "auto"),
+                         remat=config.get("remat", False))
         levels = config.get("unet_levels", 3)
         self.weight_head_2d = TinyUNet(HDIM + CDIM + 8, (H, W), dt, levels)
         self.weight_head_3d = TinyUNet(HDIM + CDIM + 8 + 8, (H, W), dt, levels)
@@ -98,7 +116,7 @@ class PoseNet(nn.Module):
 
     def get_weight_maps(self, pcl1, depth2, intrinsics, image1l, image2l,
                         mask2, time_flow, stereo_flow1, stereo_flow2, hidden,
-                        context):
+                        context, train: bool = False):
         """Warp frame-2 quantities into frame-1 correspondence and predict
         the 2D/3D confidence maps; the point-cloud warp fetches one packed
         channel, the image/stereo-flow channels are warped at the 1/8
@@ -111,9 +129,9 @@ class PoseNet(nn.Module):
                 torch.cat([stereo_flow2, image2l], dim=-1), time_flow)
             inp2 = torch.cat([five_c, eighth_from_fullres_warp(pcl2_w)], dim=-1)
             feat = torch.cat([inp1, hidden, context], dim=-1)
-            conf1 = torch.sigmoid(self.weight_head_2d(feat))
+            conf1 = torch.sigmoid(self.weight_head_2d(feat, train))
             feat3 = torch.cat([inp1, inp2, hidden, context], dim=-1)
-            conf2 = torch.sigmoid(self.weight_head_3d(feat3))
+            conf2 = torch.sigmoid(self.weight_head_3d(feat3, train))
         else:
             conf1 = torch.ones(mask2.shape, dtype=torch.float32,
                                device=mask2.device)
@@ -122,11 +140,15 @@ class PoseNet(nn.Module):
 
     def _solve(self, time_flow, pcl1, pcl2, conf1, conf2, mask1, mask2,
                intrinsics):
+        """LM solve; differentiable (the implicit-function-theorem pose
+        layer) while autograd records."""
         b = time_flow.shape[0]
         xs = PoseProblemInputs(
             flow=time_flow, pcl1=pcl1, pcl2=pcl2, weights1=conf1,
             weights2=conf2, mask1=mask1, mask2=mask2, intrinsics=intrinsics,
             loss_weight=self.loss_weight[None].expand(b, 2))
+        if torch.is_grad_enabled():
+            return pose_layer(xs, self.solver_cfg)
         return solve_pose(xs, self.solver_cfg)
 
     # inference -----------------------------------------------------------
@@ -222,3 +244,44 @@ class PoseNet(nn.Module):
         return PoseNetOutputs(pose, pose_tan, depth1, depth2, conf1, conf2,
                               time_flow, stereo_flow2,
                               (fl[-1:], net_u[-1:], inp_u[-1:]), niter)
+
+    # training --------------------------------------------------------------
+
+    def forward(self, image1l, image2l, intrinsics, baseline, image1r, image2r,
+                mask1=None, mask2=None, train: bool = False) -> PoseNetOutputs:
+        """The JAX package's training ``__call__``: both stereo pairs and the
+        temporal pair in one RAFT pass of 3B pairs, (1l,1r), (2l,2r),
+        (1l,2l), with the 4 unique images through fnet and the 2 left ones
+        through cnet; depth from the stereo flows, weight maps (``train``:
+        batch-statistics BatchNorm in the heads), and the differentiable
+        pose solve. With ``stop_flow_grad`` RAFT runs without autograd (the
+        JAX package's ``stop_gradient`` on the flows, hidden state and
+        context)."""
+        b = image1l.shape[0]
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not self.config.get("stop_flow_grad", False)):
+            enc = self.flow.encode_fnet(torch.cat([image1l, image2l, image1r,
+                                                   image2r]))
+            e1l, e2l = enc[:b], enc[b:2 * b]
+            e1r, e2r = enc[2 * b:3 * b], enc[3 * b:]
+            net_u, inp_u = self.flow.encode_cnet(torch.cat([image1l, image2l]))
+            flows, hidden, context = self.flow.flow_from_features(
+                torch.cat([e1l, e2l, e1l]), torch.cat([e1r, e2r, e2l]),
+                torch.cat([net_u[:b], net_u[b:], net_u[:b]]),
+                torch.cat([inp_u[:b], inp_u[b:], inp_u[:b]]))
+        stereo_flow1, stereo_flow2 = flows[:b], flows[b:2 * b]
+        time_flow = flows[2 * b:]
+        hidden, context = hidden[2 * b:], context[2 * b:]
+
+        depth1, valid1 = self.disparity_to_depth(stereo_flow1, baseline)
+        depth2, valid2 = self.disparity_to_depth(stereo_flow2, baseline)
+        mask1 = valid1 if mask1 is None else mask1 & valid1
+        mask2 = valid2 if mask2 is None else mask2 & valid2
+        pcl1 = depth_to_pcl(depth1, intrinsics, self.img_coords)
+        conf1, conf2, pcl2, mask2 = self.get_weight_maps(
+            pcl1, depth2, intrinsics, image1l, image2l, mask2, time_flow,
+            stereo_flow1, stereo_flow2, hidden, context, train)
+        pose, pose_tan, niter = self._solve(
+            time_flow, pcl1, pcl2, conf1, conf2, mask1, mask2, intrinsics)
+        return PoseNetOutputs(pose, pose_tan, depth1, depth2, conf1, conf2,
+                              time_flow, stereo_flow2, solver_iters=niter)

@@ -1,23 +1,45 @@
-"""RAFT optical flow, large variant, inference (port of
+"""RAFT optical flow, large variant (port of
 ``robust_pose_tpu/models/raft.py``).
 
 Module and parameter names follow the JAX package's flax tree so that
 ``utils.convert.params_from_jax`` maps one onto the other by path. Public
 methods take and return NHWC tensors; inside, activations are NCHW in
 ``channels_last`` memory, so the NHWC view a norm or a lookup needs is a
-free ``permute``. Correlation: the on-the-fly window lookup
-(``ops.corr_onthefly``) over f2 features mean-pooled in f32 and cast to the
-correlation dtype, as the JAX package does on an accelerator.
+free ``permute``.
 
-The small variant, dropout and remat wait for later slices.
+Correlation lookup (``lookup``), as in the JAX package:
+
+* ``"auto"`` / ``"onthefly"``: the on-the-fly window lookup
+  (``ops.corr_onthefly``, kernel K1) over f2 features mean-pooled in f32
+  and cast to the correlation dtype;
+* ``"lanewise"``: the transposed all-pairs volume and the lane-wise lookup
+  (``ops.corr_lanewise``, kernels K4 forward and K5 backward);
+* ``"xla"``: the all-pairs volume and the one-hot product lookup
+  (``build_corr_pyramid`` + ``lookup_corr``), plain PyTorch, as the JAX
+  package leaves it to XLA;
+* ``"grouped"`` waits for its kernels (ROADMAP, "Next slices" 1).
+
+``remat`` recomputes each encoder and each GRU iteration in the backward
+pass (``torch.utils.checkpoint``), as the JAX package's ``nn.remat`` does.
+RAFT's BatchNorms run on running statistics in training too, and the GRU
+coordinates are not detached between iterations (the JAX ``_UpdateStep``
+has no ``stop_gradient``). The small variant and dropout wait for later
+slices (ROADMAP, "Next slices" 2).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from robust_pose_tpu_torch.models.layers import BatchNorm, Conv2d, cached_cast
+from robust_pose_tpu_torch.ops.corr_lanewise import (
+    build_corr_pyramid_t,
+    lanewise_lookup,
+)
 from robust_pose_tpu_torch.ops.corr_onthefly import (
     onthefly_lookup,
     pool_fmap_pyramid,
@@ -30,6 +52,7 @@ CORR_LEVELS = 4
 CORR_RADIUS = 4
 HDIM = 128
 CDIM = 128
+LOOKUPS = ("onthefly", "lanewise", "xla")
 
 
 def nchw(x: Tensor) -> Tensor:
@@ -234,6 +257,54 @@ class UpMaskHead(nn.Module):
         return 0.25 * self.mask_conv2(F.relu(self.mask_conv1(net)).float())
 
 
+def build_corr_pyramid(fmap1: Tensor, fmap2: Tensor, dtype=None):
+    """All-pairs correlation + 4-level pyramid (the ``"xla"`` lookup's
+    volume): (B, H, W, C) features -> list of (B, N, Hl, Wl)."""
+    b, h, w, c = fmap1.shape
+    corr = torch.matmul(fmap1.reshape(b, h * w, c),
+                        fmap2.reshape(b, h * w, c).transpose(1, 2)) / math.sqrt(c)
+    if dtype is not None:
+        corr = corr.to(dtype)
+    pyramid = [corr.reshape(b, h * w, h, w)]
+    for _ in range(CORR_LEVELS - 1):
+        prev = pyramid[-1]
+        _, n, hl, wl = prev.shape
+        p = prev[:, :, :(hl // 2) * 2, :(wl // 2) * 2]      # floor semantics
+        pyramid.append(p.reshape(b, n, hl // 2, 2, wl // 2, 2).mean(dim=(3, 5)))
+    return pyramid
+
+
+def lookup_corr(pyramid, coords: Tensor, radius: int = CORR_RADIUS):
+    """Radius-r bilinear lookup as one-hot weight products per pixel,
+    ``W_y @ corr @ W_x^T`` (the JAX package's ``lookup_corr``; out-of-level
+    corners get all-zero weight rows). The weights are cast to the volume's
+    dtype, as there.
+
+    :param coords: (B, H, W, 2) (x, y) in 1/8-res pixels
+    :return: list of per-level (B, (2r+1)^2, N) f32, dy-major
+    """
+    b, h, w, _ = coords.shape
+    n = h * w
+    d = 2 * radius + 1
+    dd = torch.arange(d, device=coords.device, dtype=torch.float32) - radius
+    outs = []
+    for lvl, corr in enumerate(pyramid):
+        hl, wl = corr.shape[2:]
+        c = coords.reshape(b, n, 2).float() / float(2 ** lvl)
+        x0, y0 = torch.floor(c[..., 0]), torch.floor(c[..., 1])
+        wx = (c[..., 0] - x0)[..., None, None]
+        wy = (c[..., 1] - y0)[..., None, None]
+        ys = (y0[..., None] + dd)[..., None]                   # (B, N, D, 1)
+        xs = (x0[..., None] + dd)[..., None]
+        ygrid = torch.arange(hl, device=coords.device, dtype=torch.float32)
+        xgrid = torch.arange(wl, device=coords.device, dtype=torch.float32)
+        Wy = ((ygrid == ys) * (1.0 - wy) + (ygrid == ys + 1) * wy).to(corr.dtype)
+        Wx = ((xgrid == xs) * (1.0 - wx) + (xgrid == xs + 1) * wx).to(corr.dtype)
+        val = torch.matmul(torch.matmul(Wy, corr), Wx.transpose(-1, -2))
+        outs.append(val.float().reshape(b, n, d * d).transpose(1, 2))
+    return outs
+
+
 def upsample_flow_convex(flow: Tensor, mask: Tensor) -> Tensor:
     """Convex-combination 8x upsampling of 1/8-res flow.
 
@@ -258,15 +329,32 @@ def upsample_flow_convex(flow: Tensor, mask: Tensor) -> Tensor:
 class RAFT(nn.Module):
     """RAFT (large) with the aimi-lab fork API; NHWC images in [0, 255]."""
 
-    def __init__(self, iters=12, dtype=torch.bfloat16, corr_dtype=torch.bfloat16):
+    def __init__(self, iters=12, dtype=torch.bfloat16, corr_dtype=torch.bfloat16,
+                 lookup="auto", remat=False):
         super().__init__()
+        lookup = "onthefly" if lookup == "auto" else lookup
+        if lookup == "grouped":
+            raise NotImplementedError(
+                "lookup='grouped' (K6/K7) is not ported yet: see ROADMAP.md, "
+                "'Next slices' 1")
+        if lookup not in LOOKUPS:
+            raise ValueError(f"unknown correlation lookup {lookup!r}; expected "
+                             "one of 'auto', 'onthefly', 'lanewise', 'xla'")
         self.iters = iters
         self.compute_dtype = dtype
         self.corr_dtype = corr_dtype
+        self.lookup = lookup
+        self.remat = remat
         self.fnet = BasicEncoder(256, "instance", dtype)
         self.cnet = BasicEncoder(HDIM + CDIM, "batch", dtype)
         self.update = nn.ModuleDict({"update_block": BasicUpdateBlock(dtype)})
         self.up_mask = UpMaskHead(dtype)
+
+    def _run(self, fn, *args):
+        """``fn(*args)``, recomputed in the backward pass under remat."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
 
     @staticmethod
     def _prep(images: Tensor) -> Tensor:
@@ -275,35 +363,52 @@ class RAFT(nn.Module):
 
     def encode_fnet(self, images: Tensor) -> Tensor:
         """(B, H, W, 3) in [0, 255] -> (B, H/8, W/8, 256)."""
-        return nhwc(self.fnet(self._prep(images)))
+        return nhwc(self._run(self.fnet, self._prep(images)))
 
     def encode_cnet(self, images: Tensor):
         """-> (net = tanh, inp = relu), each (B, H/8, W/8, 128)."""
-        c = nhwc(self.cnet(self._prep(images)))
+        c = nhwc(self._run(self.cnet, self._prep(images)))
         return torch.tanh(c[..., :HDIM]), F.relu(c[..., HDIM:])
+
+    def _pyramid(self, fmap1, fmap2):
+        if self.lookup == "onthefly":
+            return (fmap1.to(self.corr_dtype).contiguous(),
+                    [l.to(self.corr_dtype)
+                     for l in pool_fmap_pyramid(fmap2.float())])
+        build = build_corr_pyramid_t if self.lookup == "lanewise" else build_corr_pyramid
+        return build(fmap1.float(), fmap2.float(), dtype=self.corr_dtype)
+
+    def _lookup(self, pyramid, coords1):
+        if self.lookup == "onthefly":
+            return onthefly_lookup(pyramid[0], pyramid[1], coords1,
+                                   radius=CORR_RADIUS)
+        if self.lookup == "lanewise":
+            return lanewise_lookup(pyramid, coords1, radius=CORR_RADIUS)
+        return lookup_corr(pyramid, coords1)
 
     def flow_from_features(self, fmap1, fmap2, net, inp):
         """Correlation + recurrent refinement from precomputed NHWC
         features; returns (flow_up (B, H, W, 2), hidden, context) with the
         hidden state and context NHWC f32."""
         b, h8, w8, _ = fmap1.shape
-        f2_levels = [l.to(self.corr_dtype)
-                     for l in pool_fmap_pyramid(fmap2.float())]
-        f1 = fmap1.to(self.corr_dtype).contiguous()
+        pyramid = self._pyramid(fmap1, fmap2)
         ys, xs = torch.meshgrid(
             torch.arange(h8, dtype=torch.float32, device=fmap1.device),
             torch.arange(w8, dtype=torch.float32, device=fmap1.device),
             indexing="ij")
         coords0 = torch.stack([xs, ys], dim=-1)[None].expand(b, h8, w8, 2)
-        coords1 = coords0
         net = nchw(net).to(self.compute_dtype)
         inp_c = nchw(inp)
         block = self.update["update_block"]
+
+        def iteration(net, coords1):
+            corr = self._lookup(pyramid, coords1)
+            net, delta = block(net, inp_c, corr, nchw(coords1 - coords0))
+            return net, coords1 + nhwc(delta)
+
+        coords1 = coords0
         for _ in range(self.iters):
-            corr = onthefly_lookup(f1, f2_levels, coords1, radius=CORR_RADIUS)
-            flow = coords1 - coords0
-            net, delta = block(net, inp_c, corr, nchw(flow))
-            coords1 = coords1 + nhwc(delta)
+            net, coords1 = self._run(iteration, net, coords1)
         flow8 = coords1 - coords0
         flow_up = upsample_flow_convex(flow8, nhwc(self.up_mask(net)))
         return flow_up, nhwc(net).float(), inp.float()

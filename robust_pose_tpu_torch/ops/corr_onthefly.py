@@ -8,7 +8,10 @@ all-pairs volume is never materialized: pyramid levels come from 2x2
 mean-pooling the frame-2 *features* (``pool_fmap_pyramid``), which is exact
 because the correlation is linear in f2.
 
-Forward only: the backward waits for the training slice.
+Gradient: each level is a ``torch.autograd.Function`` whose backward is
+autograd through the plain version, as the JAX package's custom VJP goes
+through ``_xla_reference_level``. That backward materializes the f32
+(B, N, Hl, Wl) correlation slab of the level, as the JAX one does.
 """
 from __future__ import annotations
 
@@ -114,6 +117,23 @@ def corr_lookup_level(f1: Tensor, f2l: Tensor, coords: Tensor,
     return out
 
 
+class _OntheflyLevel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, f1, f2l, coords, radius, level_scale):
+        ctx.save_for_backward(f1, f2l, coords)
+        ctx.radius, ctx.level_scale = radius, level_scale
+        return corr_lookup_level(f1, f2l, coords, radius, level_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        f1, f2l, coords = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_() for t in (f1, f2l, coords)]
+        with torch.enable_grad():
+            out = corr_lookup_level_plain(*inputs, ctx.radius, ctx.level_scale)
+        grads = torch.autograd.grad(out, inputs, g.float())
+        return tuple(d.to(t.dtype) for d, t in zip(grads, inputs)) + (None, None)
+
+
 def onthefly_lookup(f1: Tensor, f2_levels, coords: Tensor, radius: int = 4):
     """Full-pyramid window lookup.
 
@@ -125,5 +145,6 @@ def onthefly_lookup(f1: Tensor, f2_levels, coords: Tensor, radius: int = 4):
     b, h, w, c = f1.shape
     f1f = f1.reshape(b, h * w, c)
     cs = coords.reshape(b, h * w, 2).float().contiguous()
-    return [corr_lookup_level(f1f, f2l.contiguous(), cs, radius, float(2 ** lvl))
+    return [_OntheflyLevel.apply(f1f, f2l.contiguous(), cs, radius,
+                                 float(2 ** lvl))
             for lvl, f2l in enumerate(f2_levels)]

@@ -20,6 +20,11 @@ two runs give the same bits).
 Layout the kernel takes: x (B, H, W, C) contiguous NHWC -- the NHWC view
 (``permute(0, 2, 3, 1)``) of a ``channels_last`` NCHW tensor, which is how
 the RAFT encoders keep their activations. The wrapper checks it.
+
+Gradient: ``instance_norm_stats`` is a ``torch.autograd.Function`` on both
+devices, with the JAX package's custom VJP as its backward,
+``dx = gs + 2 x gss`` (elementwise, plain PyTorch, as the JAX package
+leaves it to XLA).
 """
 from __future__ import annotations
 
@@ -91,12 +96,8 @@ def instance_norm_stats_plain(x: Tensor):
     return xf.sum(dim=(1, 2)), (xf * xf).sum(dim=(1, 2))
 
 
-def instance_norm_stats(x: Tensor):
-    """Per-(sample, channel) spatial sum and sum of squares, f32.
-
-    :param x: (B, H, W, C), C <= 128; on CUDA contiguous NHWC
-    :return: (sum (B, C), sumsq (B, C)) f32
-    """
+def _stats(x: Tensor):
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
     global launches
     b, h, w, c = x.shape
     if c > MAX_C:
@@ -124,6 +125,29 @@ def instance_norm_stats(x: Tensor):
     finish_k[(b,)](part, out, nsplit, c, BLOCK_C=block_c, num_warps=4)
     launches += 1
     return out[:, 0], out[:, 1]
+
+
+class _Stats(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _stats(x)
+
+    @staticmethod
+    def backward(ctx, gs, gss):
+        (x,) = ctx.saved_tensors
+        dx = gs[:, None, None, :] + 2.0 * x.float() * gss[:, None, None, :]
+        return dx.to(x.dtype)
+
+
+def instance_norm_stats(x: Tensor):
+    """Per-(sample, channel) spatial sum and sum of squares, f32;
+    differentiable.
+
+    :param x: (B, H, W, C), C <= 128; on CUDA contiguous NHWC
+    :return: (sum (B, C), sumsq (B, C)) f32
+    """
+    return _Stats.apply(x)
 
 
 def instance_norm(x: Tensor, eps: float = 1e-5) -> Tensor:

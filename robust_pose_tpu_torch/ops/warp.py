@@ -66,11 +66,23 @@ def _flow_target_coords(flow: Tensor):
     return cx, cy
 
 
+class _PackMaskLSB(torch.autograd.Function):
+    """Hide a boolean in bit 0 of the f32 depth (exact int32 view). The
+    gradient treats the packing as the identity in ``depth``, as the JAX
+    package's custom JVP does (exact to one ulp)."""
+
+    @staticmethod
+    def forward(ctx, depth, mask):
+        u = depth.contiguous().view(torch.int32)
+        return ((u & -2) | mask.to(torch.int32)).view(torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def _pack_mask_lsb(depth: Tensor, mask: Tensor) -> Tensor:
-    """Hide a boolean in bit 0 of the f32 depth (exact int32 view)."""
-    u = depth.to(torch.float32).contiguous().view(torch.int32)
-    u = (u & -2) | mask.to(torch.int32)
-    return u.view(torch.float32)
+    return _PackMaskLSB.apply(depth.to(torch.float32), mask)
 
 
 def _unpack_mask_lsb(packed: Tensor) -> Tensor:

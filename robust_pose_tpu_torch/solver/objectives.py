@@ -6,6 +6,7 @@ from typing import NamedTuple
 
 import torch
 
+from robust_pose_tpu_torch import se3
 from robust_pose_tpu_torch.ops.geometry import project, transform
 
 Tensor = torch.Tensor
@@ -52,3 +53,11 @@ def objective(xs: PoseProblemInputs, pose: Tensor, img_coords: Tensor) -> Tensor
     loss2d = reprojection_objective(xs.flow, xs.pcl1, xs.weights1, xs.mask1,
                                     xs.intrinsics, pose, img_coords)
     return xs.loss_weight[:, 1] * loss2d + xs.loss_weight[:, 0] * loss3d
+
+
+def objective_at_tangent(eps: Tensor, pose: Tensor, xs: PoseProblemInputs,
+                         img_coords: Tensor) -> Tensor:
+    """``objective(xs, exp(eps) * pose)``: the objective under a left
+    tangent perturbation, the parameterization the IFT backward
+    differentiates."""
+    return objective(xs, se3.retract(eps, pose), img_coords)

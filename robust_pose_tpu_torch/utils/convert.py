@@ -1,4 +1,5 @@
-"""Weights from the JAX package's flax variables to the port's state_dict.
+"""Weights (and a training state) from the JAX package's flax variables to
+the port's state_dict.
 
 The port's modules carry the flax module names, so a parameter's flax path
 ``a/b/c/kernel`` becomes ``a.b.c.weight``. Leaves may be numpy arrays or
@@ -12,6 +13,10 @@ anything ``np.asarray`` accepts; the JAX package itself is not imported.
 * BatchNorm ``scale / bias`` -> ``weight / bias``; batch_stats ``mean /
   var`` -> ``running_mean / running_var`` (eps 1e-5 in both packages).
 * ``convz*`` / ``convr*`` stay separate parameters.
+
+``train_state_from_jax`` carries a JAX ``TrainState`` (params,
+batch_stats, the optax Adam moments and count, the step) over with the same
+rules.
 """
 from __future__ import annotations
 
@@ -52,3 +57,34 @@ def params_from_jax(variables) -> Dict[str, torch.Tensor]:
         sd[".".join(mods + [_STAT_NAMES[leaf_name]])] = torch.from_numpy(
             np.asarray(leaf, dtype=np.float32).copy())
     return sd
+
+
+def _adam_state(opt_state):
+    """The optax ``ScaleByAdamState`` (fields count, mu, nu) inside a
+    nested optimizer state."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for s in opt_state:
+            found = _adam_state(s)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_jax(state) -> dict:
+    """JAX ``train.trainer.TrainState`` -> the dict
+    ``robust_pose_tpu_torch.train.trainer.PoseNetTrainer.init_state``
+    takes: ``state_dict``, Adam ``mu`` / ``nu`` by port parameter name (in
+    the port's layouts), the optimizer ``count`` and the ``step``."""
+    adam = _adam_state(state.opt_state)
+    if adam is None:
+        raise ValueError("train_state_from_jax: no Adam state in opt_state")
+    return {
+        "state_dict": params_from_jax({"params": state.params,
+                                       "batch_stats": state.batch_stats}),
+        "mu": params_from_jax({"params": adam.mu}),
+        "nu": params_from_jax({"params": adam.nu}),
+        "count": int(np.asarray(adam.count)),
+        "step": int(np.asarray(state.step)),
+    }

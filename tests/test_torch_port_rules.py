@@ -83,11 +83,50 @@ def test_frame_to_model_is_not_ported_yet():
 def test_kernel_wrappers_take_plain_versions_only_on_cpu():
     """A CPU tensor runs the plain version without touching the launch
     counters; a tensor on any other non-CUDA device raises."""
-    from robust_pose_tpu_torch.ops import corr_onthefly, instance_norm, normal_eq
+    from robust_pose_tpu_torch.ops import (
+        corr_lanewise,
+        corr_onthefly,
+        instance_norm,
+        normal_eq,
+    )
 
-    before = (corr_onthefly.launches, instance_norm.launches, normal_eq.launches)
+    counters = lambda: (corr_onthefly.launches, instance_norm.launches,
+                        normal_eq.launches, corr_lanewise.launches,
+                        corr_lanewise.bwd_launches)
+    before = counters()
     instance_norm.instance_norm_stats(torch.ones(1, 4, 4, 8))
-    assert (corr_onthefly.launches, instance_norm.launches,
-            normal_eq.launches) == before
+    vol, coords = torch.ones(1, 3, 3, 5), torch.zeros(1, 5, 2)
+    corr_lanewise.lanewise_fwd(vol, coords, 4, 1.0)
+    corr_lanewise.lanewise_bwd(vol, coords, torch.ones(1, 81, 5), 4, 1.0)
+    assert counters() == before
     with pytest.raises(RuntimeError, match="unsupported device"):
         instance_norm.instance_norm_stats(torch.ones(1, 4, 4, 8, device="meta"))
+    meta = lambda t: t.to("meta")
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        corr_lanewise.lanewise_fwd(meta(vol), meta(coords), 4, 1.0)
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        corr_lanewise.lanewise_bwd(meta(vol), meta(coords),
+                                   torch.ones(1, 81, 5, device="meta"), 4, 1.0)
+
+
+@pytest.mark.parametrize("key,value", [("lookup", "grouped"), ("small", True),
+                                       ("dropout", 0.1), ("remat_policy", "dots")])
+def test_unported_config_values_are_refused(key, value):
+    """Config values the port does not implement yet raise, naming the
+    ROADMAP, instead of being ignored."""
+    from robust_pose_tpu_torch.models.posenet import PoseNet
+
+    cfg = {"image_shape": (64, 96), "iters": 1, "unet_levels": 1, key: value}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PoseNet(cfg, device="cpu")
+
+
+def test_trainer_needs_a_device_choice_without_cuda():
+    from robust_pose_tpu_torch.train.trainer import PoseNetTrainer
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: cuda is the default here")
+    cfg = {"model": {"iters": 1, "unet_levels": 1}, "image_shape": [64, 96],
+           "train": {}}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PoseNetTrainer(cfg)
