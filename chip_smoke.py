@@ -11,7 +11,8 @@ Phases, each printing one JSON line:
                   source, in parallel).
 2. kernels     -- each hand-written kernel against its plain PyTorch version
                   on the card at the shapes of its path (K1-K3: 512x640 f2f,
-                  8-frame windows; K4-K5: the training step at batch 8):
+                  8-frame windows; K4-K5: the training step at batch 8;
+                  K6-K7: the f2m step at batch 1 and its precompute at 8):
                   max error vs the stated tolerance, kernel time, plain
                   time, the time of one PyTorch library call computing the
                   same function where one exists, and the least time the
@@ -41,6 +42,20 @@ Phases, each printing one JSON line:
                   timed steps with the launch counters set to 0 just before
                   and read just after, then one step under torch.profiler
                   (train_profile) by stage of PoseNetTrainer.train_step.
+8. f2m_slice   -- frame-to-model tracking at 64x96 in f32 on the card and on
+                  the CPU, with the default lookup and with lookup "grouped"
+                  (K7): first frame, one step, one 3-frame window; poses,
+                  flags, surfel counts and rendered masks must agree.
+9. f2m         -- production f2m at full width (configuration/
+                  infer_scared.yaml: 100 LM iterations; the surfel pool
+                  pre-sized to 4 frames as bench.py does), T = 8: first
+                  frame, 2 warm-up and 4 timed windows with the launch
+                  counters set to 0 just before and read just after; then
+                  one timed window with lookup "grouped" (f2m_grouped), its
+                  poses held against the default lookup's on the same
+                  frames.
+10. f2m_profile -- one more f2m window under torch.profiler, by span
+                  (f2m_precompute, f2m_track.*, fuse_render).
 
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 Every failed check raises: the script exits non-zero and prints no result.
@@ -136,8 +151,8 @@ def phase_device():
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
     libs = _build.build_all()
-    require(set(libs) == {"corr_onthefly", "normal_eq", "corr_lanewise"},
-            f"built {set(libs)}")
+    require(set(libs) == {"corr_onthefly", "normal_eq", "corr_lanewise",
+                          "corr_pixel"}, f"built {set(libs)}")
     ptxas = {k: [l.strip() for l in v.splitlines() if "registers" in l]
              for k, v in _build.build_log.items()}
     emit({"phase": "device", "nvidia_smi": smi,
@@ -374,14 +389,13 @@ def lanewise_inputs(dev):
     return pyramid, coords.contiguous(), grads
 
 
-def lanewise_taps(pyramid, coords):
+def window_taps(level_shapes, coords):
     """In-level taps of the (2r+2)^2 = 100 each window touches, summed over
-    queries and levels: what this run's data needs read."""
+    queries and levels ((Hl, Wl) each): what this run's data needs read."""
     import torch
 
     n = 0
-    for lvl, v in enumerate(pyramid):
-        hl, wl = v.shape[1:3]
+    for lvl, (hl, wl) in enumerate(level_shapes):
         x0 = torch.floor(coords[..., 0] / 2 ** lvl) - 4
         y0 = torch.floor(coords[..., 1] / 2 ** lvl) - 4
         dd = torch.arange(10, device=coords.device)
@@ -391,23 +405,23 @@ def lanewise_taps(pyramid, coords):
     return n
 
 
-def grid_sample_yardstick(pyramid, coords):
+def grid_sample_yardstick(vols, coords):
     """Upstream RAFT's CorrBlock lookup on the same volumes and centres:
     F.grid_sample(align_corners=True, zeros) over (B*N, 1, Hl, Wl) f32
-    volumes with a 9 x 9 grid per query (dy-major). Returns the f32 volumes
-    and grids (made outside the timed call) and the call."""
+    volumes with a 9 x 9 grid per query (dy-major). ``vols``: those f32
+    volumes; returns them, the grids (made outside the timed call) and the
+    call."""
     import torch
     import torch.nn.functional as F
 
-    b, _, _, n = pyramid[0].shape
+    m = vols[0].shape[0]
     dd = torch.arange(-4, 5, device=coords.device, dtype=torch.float32)
-    vols, grids = [], []
-    for lvl, v in enumerate(pyramid):
-        hl, wl = v.shape[1:3]
-        vols.append(v.permute(0, 3, 1, 2).reshape(b * n, 1, hl, wl).float())
-        c = coords.reshape(b * n, 1, 1, 2) / 2 ** lvl
-        x = (c[..., 0] + dd[None, None, :]).expand(b * n, 9, 9)
-        y = (c[..., 1] + dd[None, :, None]).expand(b * n, 9, 9)
+    grids = []
+    for lvl, v in enumerate(vols):
+        hl, wl = v.shape[2:]
+        c = coords.reshape(m, 1, 1, 2) / 2 ** lvl
+        x = (c[..., 0] + dd[None, None, :]).expand(m, 9, 9)
+        y = (c[..., 1] + dd[None, :, None]).expand(m, 9, 9)
         grids.append(torch.stack([2.0 * x / (wl - 1) - 1.0,
                                   2.0 * y / (hl - 1) - 1.0], -1).contiguous())
 
@@ -458,7 +472,9 @@ def kernel_lanewise(dev):
     L.launches, L.bwd_launches = saved
     plain4 = cuda_time_ms(fwd_plain, reps=3, warmup=1)
     plain5 = cuda_time_ms(bwd_plain, reps=3, warmup=1)
-    vols, grids, lib = grid_sample_yardstick(pyramid, coords)
+    vols, grids, lib = grid_sample_yardstick(
+        [v.permute(0, 3, 1, 2).reshape(b * n, 1, *v.shape[1:3]).float()
+         for v in pyramid], coords)
     lib_err = max(float((o.reshape(b, n, 81).transpose(1, 2) - p).abs().max())
                   for o, p in zip(lib(), fwd_plain()))
     lib4 = cuda_time_ms(lib, reps=5)
@@ -470,7 +486,7 @@ def kernel_lanewise(dev):
     lib5 = cuda_time_ms(lambda: torch.autograd.grad(
         outs, vols + grids, gouts, retain_graph=True), reps=5)
     del vols, grids, outs, gouts, lib
-    taps = lanewise_taps(pyramid, coords)
+    taps = window_taps([v.shape[1:3] for v in pyramid], coords)
     vol_bytes = sum(v.numel() * v.element_size() for v in pyramid)
     # K4 bytes: the in-level taps (bf16), the centres, the f32 outputs;
     # operations: 3 per tap row entry and 3 per output (f32)
@@ -505,12 +521,116 @@ def kernel_lanewise(dev):
     return out
 
 
+def pixel_inputs(dev, b, h8, w8, dtype, far=False, seed=6):
+    """K6/K7 inputs: the 4-level all-pairs volume (B, N, Hl, Wl) of random
+    C = 256 features (RAFT's build_corr_pyramid) and centres (B, H, W, 2)
+    near the identity with 200 queries a window off the level, or, with
+    ``far``, the centres 3 x base - 50 (most windows wholly or partly off)."""
+    import torch
+
+    from robust_pose_tpu_torch.models.raft import build_corr_pyramid
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f1 = torch.randn(b, h8, w8, 256, generator=g, device=dev)
+    f2 = torch.randn(b, h8, w8, 256, generator=g, device=dev)
+    pyramid = build_corr_pyramid(f1, f2, dtype=dtype)
+    ys, xs = torch.meshgrid(torch.arange(h8, device=dev, dtype=torch.float32),
+                            torch.arange(w8, device=dev, dtype=torch.float32),
+                            indexing="ij")
+    base = torch.stack([xs, ys], -1)[None].expand(b, h8, w8, 2)
+    if far:
+        coords = base * 3.0 - 50.0
+    else:
+        coords = base + 4.0 * torch.randn(b, h8, w8, 2, generator=g, device=dev)
+        coords.view(b, -1, 2)[:, :200] -= 40.0
+    return pyramid, coords.contiguous()
+
+
+def pixel_lookup_plain(pyramid, coords):
+    """The plain K6/K7 on every level, in the pyramid wrappers' (B, 81, N)
+    layout."""
+    from robust_pose_tpu_torch.ops import corr_pixel as KP
+
+    b, n = pyramid[0].shape[:2]
+    c = coords.reshape(b * n, 2)
+    return [KP.pixel_lookup_level_plain(v.reshape(b * n, *v.shape[2:]), c / 2 ** l)
+            .reshape(b, n, 81).transpose(1, 2) for l, v in enumerate(pyramid)]
+
+
+def kernel_pixel(dev):
+    """K6 and K7 at the f2m path's shapes: the temporal step (B = 1) and the
+    batched precompute (B = T = 8), N = 64 x 80 queries, bf16 volumes, all
+    4 levels; plus a small f32 case with far-off centres. Each against the
+    plain version (the kernels round as it does: tol 1e-6), timed beside
+    upstream RAFT's grid_sample lookup on the same volumes."""
+    import torch
+
+    from robust_pose_tpu_torch.ops import corr_pixel as KP
+
+    saved = (KP.launches, KP.grouped_launches)
+    fns = {"pixel_lookup": KP.pixel_lookup_pyramid,
+           "grouped_lookup": KP.grouped_lookup_pyramid}
+    tol = 1e-6
+    err = {k: 0.0 for k in fns}
+    small, small_coords = pixel_inputs(dev, 2, 16, 20, torch.float32, far=True)
+    ref = pixel_lookup_plain(small, small_coords)
+    require(any(bool((r != 0).any()) for r in ref), "pixel lookup: far case all zero")
+    for name, fn in fns.items():
+        err[name] = max(float((k - p).abs().max())
+                        for k, p in zip(fn(small, small_coords), ref))
+    per_shape = {k: [] for k in fns}
+    for b in (1, T_WINDOW):
+        pyramid, coords = pixel_inputs(dev, b, H // 8, W // 8, torch.bfloat16)
+        n = pyramid[0].shape[1]
+        ref = pixel_lookup_plain(pyramid, coords)
+        for name, fn in fns.items():
+            err[name] = max(err[name], max(float((k - p).abs().max())
+                                           for k, p in zip(fn(pyramid, coords), ref)))
+        del ref
+        plain_ms = cuda_time_ms(lambda: pixel_lookup_plain(pyramid, coords),
+                                reps=3, warmup=1)
+        vols, grids, lib = grid_sample_yardstick(
+            [v.reshape(b * n, 1, *v.shape[2:]).float() for v in pyramid], coords)
+        lib_ms = cuda_time_ms(lib, reps=5)
+        del vols, grids, lib
+        taps = window_taps([v.shape[2:] for v in pyramid], coords.reshape(b, n, 2))
+        # bytes: the in-level taps (bf16), the centres, the f32 outputs;
+        # operations: 3 per tap row entry and 3 per output (f32)
+        nbytes = taps * 2 + coords.numel() * 4 + len(pyramid) * b * 81 * n * 4
+        ops = len(pyramid) * b * n * (9 * 10 * 3 + 81 * 3)
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+        for name, fn in fns.items():
+            per_shape[name].append({
+                "batch": b, "ms": cuda_time_ms(lambda: fn(pyramid, coords)),
+                "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": max(t_b, t_o) * 1e3,
+                "bound_by": "bytes" if t_b >= t_o else "operations",
+                "bytes": nbytes, "ops": ops, "taps_in_level": taps})
+        del pyramid, coords
+        torch.cuda.empty_cache()
+    KP.launches, KP.grouped_launches = saved
+    for name in fns:
+        require(err[name] <= tol, f"{name}: max |err| {err[name]} > {tol}")
+    out = []
+    for name, line in (("pixel_lookup", 47), ("grouped_lookup", 159)):
+        step = per_shape[name][0]                  # the temporal step, B = 1
+        out.append({"name": name, "route": "cuda",
+                    "source": "robust_pose_tpu_torch/csrc/corr_pixel.cu",
+                    "replaces": f"robust_pose_tpu/ops/pallas_lookup.py:{line}",
+                    "max_abs_err": err[name], "tol": tol,
+                    **{k: step[k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")},
+                    "unit": "one 4-level lookup at B = 1 (4 launches)",
+                    "per_shape": per_shape[name]})
+    return out
+
+
 def phase_kernels(dev):
     import torch
 
     t0 = time.perf_counter()
     out = [kernel_corr(dev), kernel_instance_norm(dev), kernel_normal_eq(dev),
-           *kernel_lanewise(dev)]
+           *kernel_lanewise(dev), *kernel_pixel(dev)]
     torch.cuda.synchronize()
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
           "kernels": out})
@@ -586,21 +706,29 @@ def phase_slice(dev):
 # phase 4
 # ---------------------------------------------------------------------------
 
-def production_estimator(dev, mixed_precision, state_dict=None, disparity=8):
+F2F_SLAM = {"frame2frame": True, "lbgfs_iters": 20, "conf_weighing": True,
+            "depth_clipping": [1, 250], "dist_thr": 0.05, "average_pts": False}
+
+
+def production_estimator(dev, mixed_precision, state_dict=None, disparity=8,
+                         slam=F2F_SLAM, lookup=None):
+    """A full-width PoseEstimator (12 GRU iterations, weight heads, 3 UNet
+    levels) for the SLAM config ``slam``; random seeded weights with
+    bench.py's flow head (zero kernel, bias = disparity / (8 * iters))
+    unless ``state_dict`` is given."""
     import torch
 
     from robust_pose_tpu_torch.models.posenet import PoseNet
     from robust_pose_tpu_torch.slam.pose_estimator import PoseEstimator
 
-    model_cfg = {"image_shape": (H, W), "iters": 12, "lbgfs_iters": 20,
-                 "use_weights": True, "unet_levels": 3,
-                 "mixed_precision": mixed_precision}
-    slam = {"frame2frame": True, "lbgfs_iters": 20, "conf_weighing": True,
-            "depth_clipping": [1, 250], "dist_thr": 0.05, "average_pts": False}
+    model_cfg = {"image_shape": (H, W), "iters": 12,
+                 "lbgfs_iters": slam["lbgfs_iters"], "use_weights": True,
+                 "unet_levels": 3, "mixed_precision": mixed_precision}
+    if lookup is not None:
+        model_cfg["lookup"] = lookup
     if state_dict is None:
         m = PoseNet(model_cfg, device=dev)
         m.reset_parameters(torch.Generator().manual_seed(0))
-        # bench.py's flow head: zero kernel, bias = disparity / (8 * iters)
         fh = m.flow.update["update_block"].flow_head.conv2
         with torch.no_grad():
             fh.weight.zero_()
@@ -694,6 +822,8 @@ KERNEL_GROUPS = (            # (group, substrings of the device kernel name)
     ("normal_eq (K3)", ("normal_eq",)),
     ("lanewise_lookup (K4)", ("lanewise_fwd",)),
     ("lanewise_lookup_bwd (K5)", ("lanewise_bwd",)),
+    ("pixel_lookup (K6)", ("pixel_lookup",)),
+    ("grouped_lookup (K7)", ("grouped_lookup",)),
     ("convolutions and products", ("conv", "cudnn", "xmma", "gemm", "sm90_",
                                    "cutlass", "implicit")),
     ("elementwise, reductions, copies", ("elementwise", "vectorized",
@@ -787,9 +917,10 @@ def phase_profile(est, window, masks):
 # phases 6 and 7
 # ---------------------------------------------------------------------------
 
-def read_train_yaml(path):
-    """The mappings, lists and scalars of configuration/train.yaml (block
-    style, as that file is written) without a YAML package."""
+def read_yaml(path):
+    """The mappings, lists and scalars of a block-style YAML file of
+    configuration/ (train.yaml, infer_scared.yaml; "#" comments, empty
+    values as empty mappings) without a YAML package."""
     def scalar(v):
         for conv in (int, float):
             try:
@@ -801,6 +932,7 @@ def read_train_yaml(path):
     root = {}
     stack = [[-1, root, None, None]]     # [indent, container, owner, key]
     for raw in open(path).read().splitlines():
+        raw = raw.split(" #")[0].rstrip()
         if not raw.strip() or raw.lstrip().startswith("#"):
             continue
         ind = len(raw) - len(raw.lstrip())
@@ -839,22 +971,26 @@ def spy_grads(trainer):
 def launch_counts():
     from robust_pose_tpu_torch.ops import corr_lanewise as L
     from robust_pose_tpu_torch.ops import corr_onthefly as K1
+    from robust_pose_tpu_torch.ops import corr_pixel as KP
     from robust_pose_tpu_torch.ops import instance_norm as K2
     from robust_pose_tpu_torch.ops import normal_eq as K3
 
     return {"corr_window_lookup": K1.launches, "instance_norm_stats": K2.launches,
             "normal_eq": K3.launches, "lanewise_lookup": L.launches,
-            "lanewise_lookup_bwd": L.bwd_launches}
+            "lanewise_lookup_bwd": L.bwd_launches, "pixel_lookup": KP.launches,
+            "grouped_lookup": KP.grouped_launches}
 
 
 def zero_launch_counts():
     from robust_pose_tpu_torch.ops import corr_lanewise as L
     from robust_pose_tpu_torch.ops import corr_onthefly as K1
+    from robust_pose_tpu_torch.ops import corr_pixel as KP
     from robust_pose_tpu_torch.ops import instance_norm as K2
     from robust_pose_tpu_torch.ops import normal_eq as K3
 
     K1.launches = K2.launches = K3.launches = 0
     L.launches = L.bwd_launches = 0
+    KP.launches = KP.grouped_launches = 0
 
 
 def phase_train_slice(dev):
@@ -977,7 +1113,7 @@ def phase_train(dev, smi):
     from robust_pose_tpu_torch.models.posenet import PoseNet
     from robust_pose_tpu_torch.train.trainer import PoseNetTrainer
 
-    y = read_train_yaml("configuration/train.yaml")
+    y = read_yaml("configuration/train.yaml")
     require(y["train"]["batch_size"] == TRAIN_BATCH
             and tuple(y["image_shape"]) == (H, W), "train.yaml changed")
     base = {"model": dict(y["model"]), "image_shape": y["image_shape"],
@@ -1059,6 +1195,199 @@ def phase_train(dev, smi):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phases 8 to 10
+# ---------------------------------------------------------------------------
+
+F2M_POOL_FRAMES = 4           # pool pre-sized to 4 frames, as bench.py does
+F2M_WINDOW_K1 = (48, 48)      # K1 launches: precompute (4 levels x 12
+                              # iterations at batch T), then per frame
+F2M_WINDOW_K2 = (15, 15)      # K2: one fnet pass in the precompute, one a frame
+
+
+def phase_f2m_slice(dev):
+    """f2m at 64x96 in f32, the same weights and frames on the card
+    (kernels) and on the CPU (plain versions), with the default lookup and
+    with ``grouped``: the first frame, one per-frame step, then one window of
+    3 frames. Success flags equal, pose tangent distance <= 1e-4, n_active
+    within 0.5 %, and the rendered model-frame masks (the step's reference,
+    the window's carried next reference) equal at >= 99.5 % of pixels: a
+    surfel whose projection sits on a pixel boundary can fall on either
+    side on the two devices (flips are printed)."""
+    import torch
+
+    from robust_pose_tpu_torch.slam.pose_estimator import PoseEstimator
+
+    h, w = 64, 96
+    model_cfg = {"image_shape": (h, w), "iters": 2, "lbgfs_iters": 5,
+                 "use_weights": True, "mixed_precision": False, "unet_levels": 1}
+    slam = {"frame2frame": False, "lbgfs_iters": 5, "conf_weighing": True,
+            "depth_clipping": [1, 250], "dist_thr": 0.05, "average_pts": False,
+            "map_capacity": 8 * h * w}
+    K = np.array([[100.0, 0, w / 2], [0, 100.0, h / 2], [0, 0, 1.0]])
+    sd = small_state_dict(model_cfg, seed=11)
+    ls, rs = make_sequence(5, disparity=3, step=2, seed=5, h=h, w=w)
+    mask = np.ones((1, h, w, 1), bool)
+    report = {}
+    for lookup in ("auto", "grouped"):
+        res = {}
+        for where in ("cuda", "cpu"):
+            est = PoseEstimator(slam, K, 250.0, {
+                "state_dict": sd, "config": {"model": dict(model_cfg, lookup=lookup)}},
+                (w, h), device=dev if where == "cuda" else "cpu")
+            zero_launch_counts()
+            est(ls[0], rs[0], mask)
+            pose, _, _, _ = est(ls[1], rs[1], mask)
+            step = (pose.cpu(), est.success.cpu().reshape(1),
+                    est.get_last_frame().mask.cpu())
+            p, s = est.track_window(ls[2:5], rs[2:5], np.stack([mask] * 3))
+            res[where] = {"poses": torch.cat([step[0][None], p.cpu()]),
+                          "succ": torch.cat([step[1], s.cpu()]),
+                          "masks": [step[2], est._model_frame.mask.cpu()],
+                          "n_active": est.scene.n_active,
+                          "launches": launch_counts()}
+            del est
+        c, p = res["cuda"], res["cpu"]
+        dist = tangent_distance(c["poses"], p["poses"])
+        flips = [int((a != b).sum()) for a, b in zip(c["masks"], p["masks"])]
+        agree = min(1.0 - f / (h * w) for f in flips)
+        lc = c["launches"]
+        lookup_k = "grouped_lookup" if lookup == "grouped" else "corr_window_lookup"
+        other_k = "corr_window_lookup" if lookup == "grouped" else "grouped_lookup"
+        require(bool(p["succ"].any()), f"f2m_slice {lookup}: every frame failed")
+        require(torch.equal(c["succ"], p["succ"]), f"f2m_slice {lookup}: success flags")
+        require(dist <= 1e-4, f"f2m_slice {lookup}: pose tangent distance {dist}")
+        require(abs(c["n_active"] - p["n_active"]) <= 0.005 * p["n_active"],
+                f"f2m_slice {lookup}: n_active {c['n_active']} vs {p['n_active']}")
+        require(agree >= 0.995, f"f2m_slice {lookup}: model-frame masks {flips}")
+        require(lc[lookup_k] > 0 and lc[other_k] == 0 and lc["normal_eq"] > 0
+                and lc["instance_norm_stats"] > 0, f"f2m_slice {lookup}: {lc}")
+        require(not any(p["launches"].values()), f"f2m_slice {lookup}: CPU launches")
+        report[lookup] = {"pose_tangent_dist": dist, "success": c["succ"].tolist(),
+                          "n_active_cuda": c["n_active"], "n_active_cpu": p["n_active"],
+                          "mask_flips": flips, "launches_cuda": lc}
+    emit({"phase": "f2m_slice", "shape": [h, w], "tol": {
+        "pose": 1e-4, "n_active_rel": 0.005, "mask_agreement": 0.995}, **report})
+
+
+def f2m_slam():
+    """configuration/infer_scared.yaml's SLAM settings, read from the file,
+    with the pool pre-sized to F2M_POOL_FRAMES frames (map_capacity =
+    initial_bucket) and the segsort winner, as bench.py's f2m cell does."""
+    y = read_yaml("configuration/infer_scared.yaml")["slam"]
+    require(y["frame2frame"] is False and y["lbgfs_iters"] == 100
+            and y["conf_weighing"] is True and y["average_pts"] is False
+            and y["dist_thr"] == 0.05, f"infer_scared.yaml changed: {y}")
+    slam = {k: y[k] for k in ("frame2frame", "lbgfs_iters", "conf_weighing",
+                              "depth_clipping", "dist_thr", "average_pts")}
+    cap = F2M_POOL_FRAMES * H * W
+    slam.update(map_capacity=cap, initial_bucket=cap, winner="segsort")
+    return slam
+
+
+def f2m_reruns(launches, lookup_key, n_windows):
+    """Frame loops re-run after a pool overflow (a window's loop runs again
+    from its carries when compaction frees room), from the lookup launches:
+    each window runs one precompute, each loop T per-frame lookups."""
+    pre, per = F2M_WINDOW_K1
+    loops, rest = divmod(launches[lookup_key] - pre * n_windows, per * T_WINDOW)
+    require(rest == 0 and loops >= n_windows, f"f2m: {lookup_key} launches {launches}")
+    return loops - n_windows
+
+
+def phase_f2m(dev, smi):
+    """f2m at full width (512x640, T = 8, infer_scared.yaml: 100 LM
+    iterations, weight heads, bf16), random seeded weights with bench.py's
+    flow head, bench.py's synthetic sequence: first frame, 2 warm-up and 4
+    timed windows with the launch counters set to 0 just before and read
+    just after; then one timed window with lookup "grouped" (K7) after one
+    warm-up window, against a default-lookup estimator on the same frames;
+    then one window under the profiler (f2m_profile)."""
+    import torch
+
+    slam = f2m_slam()
+    est, sd = production_estimator(dev, True, slam=slam)
+    ls, rs = make_sequence(1, seed=11)
+    mask1 = np.ones((1, H, W, 1), bool)
+    est(ls[0], rs[0], mask1)
+    masks = torch.ones((T_WINDOW, 1, H, W, 1), dtype=torch.bool, device=dev)
+    windows = []
+    for i in range(N_TIMED + 2):
+        l, r = make_sequence(T_WINDOW, seed=12 + i)
+        windows.append((torch.from_numpy(l).to(dev), torch.from_numpy(r).to(dev)))
+    for i in (-1, -2):                                     # warm-up
+        est.track_window(windows[i][0], windows[i][1], masks)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    succs, iters, poses = [], [], None
+    for i in range(N_TIMED):
+        poses, succ = est.track_window(windows[i][0], windows[i][1], masks)
+        succs.append(succ)
+        iters.append(est.last_solver_iters)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    reruns = f2m_reruns(launches, "corr_window_lookup", N_TIMED)
+    pre, per = F2M_WINDOW_K2
+    require(launches["instance_norm_stats"]
+            == pre * N_TIMED + per * T_WINDOW * (N_TIMED + reruns),
+            f"f2m: instance norms {launches}")
+    require(launches["normal_eq"] >= 2 * T_WINDOW * N_TIMED
+            and not any(launches[k] for k in ("lanewise_lookup", "lanewise_lookup_bwd",
+                                              "pixel_lookup", "grouped_lookup")),
+            f"f2m: launches {launches}")
+    require(bool(torch.isfinite(poses).all()), "f2m: non-finite poses")
+    succ = torch.cat(succs)
+    it = torch.cat(iters).cpu()
+    st = est.scene.state
+    emit({"phase": "f2m", "card": smi, "shape": [H, W], "window": T_WINDOW,
+          "slam": slam, "timed_windows": N_TIMED, "fps": N_TIMED * T_WINDOW / dt,
+          "seconds": dt, "success_rate": float(succ.float().mean()),
+          "lm_iters": {"mean": float(it.float().mean()), "max": int(it.max()),
+                       "min": int(it.min())},
+          "n_active": est.scene.n_active, "n_dropped": int(st.n_dropped),
+          "hi": int(st.hi), "bucket_capacity": est.scene.cfg.capacity,
+          "window_loop_reruns": reruns,
+          "launches_per_window": {k: v / N_TIMED for k, v in launches.items() if v},
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+
+    # lookup "grouped" (K7) beside the default lookup, on the same frames
+    ests = {lk: production_estimator(dev, True, state_dict=sd, slam=slam,
+                                     lookup=lk)[0] for lk in ("grouped", None)}
+    for e in ests.values():
+        e(ls[0], rs[0], mask1)
+        e.track_window(windows[-1][0], windows[-1][1], masks)
+    ref_poses, _ = ests[None].track_window(windows[0][0], windows[0][1], masks)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    g_poses, g_succ = ests["grouped"].track_window(windows[0][0], windows[0][1], masks)
+    torch.cuda.synchronize()
+    dt_g = time.perf_counter() - t0
+    g_launches = launch_counts()
+    g_reruns = f2m_reruns(g_launches, "grouped_lookup", 1)
+    require(g_launches["corr_window_lookup"] == 0 and g_launches["pixel_lookup"] == 0,
+            f"f2m grouped: launches {g_launches}")
+    dist = tangent_distance(g_poses, ref_poses)
+    # the two lookups read the same bf16 features through volumes pooled
+    # in another order; the tolerance of the f2f bf16-vs-f32 check
+    require(dist < 2e-2, f"f2m grouped: pose distance to the default lookup {dist}")
+    emit({"phase": "f2m_grouped", "card": smi, "fps": T_WINDOW / dt_g,
+          "seconds": dt_g, "success_rate": float(g_succ.float().mean()),
+          "window_loop_reruns": g_reruns,
+          "launches": {k: v for k, v in g_launches.items() if v},
+          "pose_dist_to_default_lookup": dist, "tol": 2e-2})
+    del ests
+    torch.cuda.empty_cache()
+
+    emit({"phase": "f2m_profile", "window": T_WINDOW,
+          **profile_run(lambda: est.track_window(windows[1][0], windows[1][1], masks),
+                        ("f2m_", "fuse_render"))})
+    return launches, g_launches
+
+
 def main():
     import torch
 
@@ -1074,10 +1403,14 @@ def main():
     launches = phase_main(dev, smi)
     phase_train_slice(dev)
     train = phase_train(dev, smi)
+    phase_f2m_slice(dev)
+    _, f2m_grouped = phase_f2m(dev, smi)
     # each kernel's launches on its own path: K1-K3 in the f2f main path,
-    # K4-K5 in the training step with live RAFT
+    # K4-K5 in the training step with live RAFT, K7 in the f2m window with
+    # lookup "grouped"; K6 has no path (none in the JAX package either)
     launches.update({k: train["b"][k] for k in ("lanewise_lookup",
                                                  "lanewise_lookup_bwd")})
+    launches.update(pixel_lookup=0, grouped_lookup=f2m_grouped["grouped_lookup"])
     for k in kernels:
         k["launches"] = launches[k["name"]]
     emit({"kernels": [{key: k[key] for key in (

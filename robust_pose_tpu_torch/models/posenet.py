@@ -1,14 +1,14 @@
 """PoseNet: RAFT flow + TinyUNet confidence heads + LM pose solve with an
 implicit-function-theorem backward (port of
-``robust_pose_tpu/models/posenet.py``: the inference methods and the
-training forward ``__call__``).
+``robust_pose_tpu/models/posenet.py``: the inference methods, the
+frame-to-model split and the training forward ``__call__``).
 
 NHWC tensors, images in [0, 255]. Config keys: image_shape (H, W), iters,
 lbgfs_iters, use_weights, mixed_precision (bf16 convs and correlation
-features, f32 parameters), unet_levels, solver_early_exit, and for
-training lookup (``models.raft``), remat, stop_flow_grad and dropout (0
+features, f32 parameters), unet_levels, solver_early_exit, lookup
+(``models.raft``), and for training remat, stop_flow_grad and dropout (0
 only). Not ported yet, and refused: small, dropout > 0, remat_policy
-"dots" (ROADMAP). The frame-to-model methods wait for a later slice.
+"dots" (ROADMAP).
 """
 from __future__ import annotations
 
@@ -244,6 +244,58 @@ class PoseNet(nn.Module):
         return PoseNetOutputs(pose, pose_tan, depth1, depth2, conf1, conf2,
                               time_flow, stereo_flow2,
                               (fl[-1:], net_u[-1:], inp_u[-1:]), niter)
+
+    # frame-to-model split -------------------------------------------------
+
+    def f2m_precompute(self, limgs, rimgs, masks, baseline):
+        """The map-independent part of f2m tracking, batched over T frames:
+        the input frames' encoder features and the whole stereo branch
+        (stereo flow -> depth -> validity).
+
+        :param limgs/rimgs: (T, H, W, 3); masks (T, H, W, 1) bool
+        :param baseline: (1,) pre-scaled stereo baseline
+        :return: (fmap_l, net_l, inp_l, stereo_flow2, depth2, mask2), each
+            with leading dim T; depth2 normalized, mask2 = masks & valid
+        """
+        t = limgs.shape[0]
+        with record_function("f2m_precompute"):
+            enc = self.flow.encode_fnet(torch.cat([limgs, rimgs]))
+            fl, fr = enc[:t], enc[t:]
+            net_u, inp_u = self.flow.encode_cnet(limgs)
+            stereo_flow2, _, _ = self.flow.flow_from_features(fl, fr, net_u, inp_u)
+            depth2, valid2 = self.disparity_to_depth(stereo_flow2, baseline.expand(t))
+        return fl, net_u, inp_u, stereo_flow2, depth2, masks & valid2
+
+    def f2m_track(self, ref_img, ref_depth1, ref_mask, ref_sflow1, limg, mask2,
+                  intrinsics, fmap_l, net_l, inp_l, stereo_flow2,
+                  depth2) -> PoseNetOutputs:
+        """One f2m tracking step against a rendered reference: only the
+        reference is encoded, and RAFT runs the one temporal pair; the same
+        math as :meth:`infer` with the stereo quantities precomputed.
+
+        :param ref_*: the rendered model frame: image (1, H, W, 3), depth1
+            (1, H, W, 1) already depth-scale-normalized, mask (1, H, W, 1),
+            stereo flow (zeros for a rendering)
+        :param mask2, fmap_l, ...: this frame's slice of
+            :meth:`f2m_precompute` (leading dim 1)
+        """
+        with record_function("f2m_track.encode"):
+            f1 = self.flow.encode_fnet(ref_img)
+            net1, inp1 = self.flow.encode_cnet(ref_img)
+        with record_function("f2m_track.flow"):
+            time_flow, hidden, context = self.flow.flow_from_features(
+                f1, fmap_l, net1, inp1)
+        with record_function("f2m_track.weights"):
+            pcl1 = depth_to_pcl(ref_depth1, intrinsics, self.img_coords)
+            conf1, conf2, pcl2_w, mask2_w = self.get_weight_maps(
+                pcl1, depth2, intrinsics, ref_img, limg, mask2, time_flow,
+                ref_sflow1, stereo_flow2, hidden, context)
+        with record_function("f2m_track.solve"):
+            pose, pose_tan, niter = self._solve(
+                time_flow, pcl1, pcl2_w, conf1, conf2, ref_mask, mask2_w,
+                intrinsics)
+        return PoseNetOutputs(pose, pose_tan, ref_depth1, depth2, conf1, conf2,
+                              time_flow, stereo_flow2, None, niter)
 
     # training --------------------------------------------------------------
 

@@ -17,7 +17,11 @@ Correlation lookup (``lookup``), as in the JAX package:
 * ``"xla"``: the all-pairs volume and the one-hot product lookup
   (``build_corr_pyramid`` + ``lookup_corr``), plain PyTorch, as the JAX
   package leaves it to XLA;
-* ``"grouped"`` waits for its kernels (ROADMAP, "Next slices" 1).
+* ``"grouped"``: the all-pairs volume of ``"xla"`` and the per-query
+  lookup (``ops.corr_pixel``, kernel K7), forward only: like the JAX
+  package's Pallas lookup it has no gradient, and asked for one it raises
+  (train RAFT through ``"lanewise"``; with ``train.stop_flow_grad`` RAFT runs
+  without autograd and ``"grouped"`` serves).
 
 ``remat`` recomputes each encoder and each GRU iteration in the backward
 pass (``torch.utils.checkpoint``), as the JAX package's ``nn.remat`` does.
@@ -44,6 +48,7 @@ from robust_pose_tpu_torch.ops.corr_onthefly import (
     onthefly_lookup,
     pool_fmap_pyramid,
 )
+from robust_pose_tpu_torch.ops.corr_pixel import grouped_lookup_pyramid
 from robust_pose_tpu_torch.ops.instance_norm import instance_norm
 
 Tensor = torch.Tensor
@@ -52,7 +57,7 @@ CORR_LEVELS = 4
 CORR_RADIUS = 4
 HDIM = 128
 CDIM = 128
-LOOKUPS = ("onthefly", "lanewise", "xla")
+LOOKUPS = ("onthefly", "lanewise", "grouped", "xla")
 
 
 def nchw(x: Tensor) -> Tensor:
@@ -333,13 +338,10 @@ class RAFT(nn.Module):
                  lookup="auto", remat=False):
         super().__init__()
         lookup = "onthefly" if lookup == "auto" else lookup
-        if lookup == "grouped":
-            raise NotImplementedError(
-                "lookup='grouped' (K6/K7) is not ported yet: see ROADMAP.md, "
-                "'Next slices' 1")
         if lookup not in LOOKUPS:
             raise ValueError(f"unknown correlation lookup {lookup!r}; expected "
-                             "one of 'auto', 'onthefly', 'lanewise', 'xla'")
+                             "one of 'auto', 'onthefly', 'lanewise', 'grouped', "
+                             "'xla'")
         self.iters = iters
         self.compute_dtype = dtype
         self.corr_dtype = corr_dtype
@@ -384,6 +386,8 @@ class RAFT(nn.Module):
                                    radius=CORR_RADIUS)
         if self.lookup == "lanewise":
             return lanewise_lookup(pyramid, coords1, radius=CORR_RADIUS)
+        if self.lookup == "grouped":
+            return grouped_lookup_pyramid(pyramid, coords1)
         return lookup_corr(pyramid, coords1)
 
     def flow_from_features(self, fmap1, fmap2, net, inp):

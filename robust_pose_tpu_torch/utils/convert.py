@@ -16,7 +16,7 @@ anything ``np.asarray`` accepts; the JAX package itself is not imported.
 
 ``train_state_from_jax`` carries a JAX ``TrainState`` (params,
 batch_stats, the optax Adam moments and count, the step) over with the same
-rules.
+rules, and ``surfel_state_from_jax`` a surfel map's state.
 """
 from __future__ import annotations
 
@@ -24,6 +24,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from robust_pose_tpu_torch.slam.surfel_map import SurfelState
 
 _PARAM_NAMES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
@@ -57,6 +59,15 @@ def params_from_jax(variables) -> Dict[str, torch.Tensor]:
         sd[".".join(mods + [_STAT_NAMES[leaf_name]])] = torch.from_numpy(
             np.asarray(leaf, dtype=np.float32).copy())
     return sd
+
+
+def surfel_state_from_jax(state):
+    """A JAX ``slam.surfel_map.SurfelState`` (leaves as numpy arrays or
+    anything ``np.asarray`` takes) -> the port's ``SurfelState`` of CPU
+    tensors with the same dtypes (f32 fields, int32 counters and
+    ``t_created``, bool ``active``; ``tick``, ``n_dropped`` and ``hi`` 0-d)."""
+    return SurfelState(*(torch.from_numpy(np.array(getattr(state, f)))
+                         for f in SurfelState._fields))
 
 
 def _adam_state(opt_state):

@@ -72,32 +72,32 @@ def test_entry_points_need_a_device_choice_without_cuda():
         PoseEstimator(slam, np.eye(3), 1.0, ckpt, (96, 64))
 
 
-def test_frame_to_model_is_not_ported_yet():
-    from robust_pose_tpu_torch.slam.pose_estimator import PoseEstimator
-
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PoseEstimator({"frame2frame": False}, np.eye(3), 1.0, {}, (96, 64),
-                      device="cpu")
-
-
 def test_kernel_wrappers_take_plain_versions_only_on_cpu():
     """A CPU tensor runs the plain version without touching the launch
     counters; a tensor on any other non-CUDA device raises."""
     from robust_pose_tpu_torch.ops import (
         corr_lanewise,
         corr_onthefly,
+        corr_pixel,
         instance_norm,
         normal_eq,
     )
 
     counters = lambda: (corr_onthefly.launches, instance_norm.launches,
                         normal_eq.launches, corr_lanewise.launches,
-                        corr_lanewise.bwd_launches)
+                        corr_lanewise.bwd_launches, corr_pixel.launches,
+                        corr_pixel.grouped_launches)
     before = counters()
     instance_norm.instance_norm_stats(torch.ones(1, 4, 4, 8))
     vol, coords = torch.ones(1, 3, 3, 5), torch.zeros(1, 5, 2)
     corr_lanewise.lanewise_fwd(vol, coords, 4, 1.0)
     corr_lanewise.lanewise_bwd(vol, coords, torch.ones(1, 81, 5), 4, 1.0)
+    pvol, pcoords = torch.ones(6, 2, 3), torch.zeros(6, 2)       # K6/K7
+    pyr, pyr_coords = [torch.ones(1, 6, 2, 3)], torch.zeros(1, 2, 3, 2)
+    corr_pixel.pixel_lookup_level(pvol, pcoords)
+    corr_pixel.grouped_lookup_level(pvol, pcoords)
+    corr_pixel.pixel_lookup_pyramid(pyr, pyr_coords)
+    corr_pixel.grouped_lookup_pyramid(pyr, pyr_coords)
     assert counters() == before
     with pytest.raises(RuntimeError, match="unsupported device"):
         instance_norm.instance_norm_stats(torch.ones(1, 4, 4, 8, device="meta"))
@@ -107,10 +107,16 @@ def test_kernel_wrappers_take_plain_versions_only_on_cpu():
     with pytest.raises(RuntimeError, match="unsupported device"):
         corr_lanewise.lanewise_bwd(meta(vol), meta(coords),
                                    torch.ones(1, 81, 5, device="meta"), 4, 1.0)
+    for fn in (corr_pixel.pixel_lookup_level, corr_pixel.grouped_lookup_level):
+        with pytest.raises(RuntimeError, match="unsupported device"):
+            fn(meta(pvol), meta(pcoords))
+    for fn in (corr_pixel.pixel_lookup_pyramid, corr_pixel.grouped_lookup_pyramid):
+        with pytest.raises(RuntimeError, match="unsupported device"):
+            fn([meta(pyr[0])], meta(pyr_coords))
 
 
-@pytest.mark.parametrize("key,value", [("lookup", "grouped"), ("small", True),
-                                       ("dropout", 0.1), ("remat_policy", "dots")])
+@pytest.mark.parametrize("key,value", [("small", True), ("dropout", 0.1),
+                                       ("remat_policy", "dots")])
 def test_unported_config_values_are_refused(key, value):
     """Config values the port does not implement yet raise, naming the
     ROADMAP, instead of being ignored."""
