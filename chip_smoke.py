@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port (robust_pose_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py           # every phase, then the result lines
+    python3 chip_smoke.py kernels   # phases 1 and 2 only, phase 2 three times
+                                    # over (its spread); no result line
 
 Phases, each printing one JSON line:
 
@@ -12,12 +14,17 @@ Phases, each printing one JSON line:
 2. kernels     -- each hand-written kernel against its plain PyTorch version
                   on the card at the shapes of its path (K1-K3: 512x640 f2f,
                   8-frame windows; K4-K5: the training step at batch 8;
-                  K6-K7: the f2m step at batch 1 and its precompute at 8):
-                  max error vs the stated tolerance, kernel time, plain
-                  time, the time of one PyTorch library call computing the
-                  same function where one exists, and the least time the
-                  card could take (bytes over 3.35 TB/s or operations over
-                  the peak rate of their type).
+                  K6-K7: the f2m step at batch 1 and its precompute at 8,
+                  one launch a 4-level lookup): max error vs the stated
+                  tolerance; the time of one call three ways, ms (CUDA
+                  events around back-to-back calls: the larger of the
+                  host's and the card's share), device_ms (torch.profiler:
+                  the summed duration of the kernels the call launches)
+                  and host_us (host clock, no synchronisation); the plain
+                  version's time, the time of one PyTorch library call
+                  computing the same function where one exists, and the
+                  least time the card could take (bytes over 3.35 TB/s or
+                  operations over the peak rate of their type).
 3. slice       -- the port's f2f path at 64x96 in f32 with TF32 off, once on
                   the card through the kernels and once on the CPU through
                   the plain versions: poses, success flags and masks must
@@ -103,6 +110,66 @@ def cuda_time_ms(fn, reps=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_time_us(fn, reps=20, warmup=3):
+    """What one fn() costs the host: time.perf_counter around ``reps`` calls
+    with no synchronisation between them (the card drains the queue
+    meanwhile), in microseconds a call."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
+profiler_retries = 0          # device_time_ms traces that saw no kernel
+
+
+def device_time_ms(fn, reps=10):
+    """What one fn() costs the card: the summed duration of every kernel,
+    copy and memset it launches, from torch.profiler's device timeline,
+    mean over ``reps`` calls; and how many of them one call launches. A
+    trace this short now and then comes back without one device event: it
+    is then taken again, three times at most, and counted in
+    ``profiler_retries``."""
+    global profiler_retries
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+        if ev:
+            break
+        profiler_retries += 1
+    require(ev, "device_time_ms: the profiler saw no kernel in 3 traces")
+    return sum(e.time_range.elapsed_us() for e in ev) / reps / 1e3, len(ev) / reps
+
+
+def measure(fn, reps=20, warmup=3):
+    """The three times of one fn() on CUDA tensors. ``ms``: CUDA events
+    around ``reps`` back-to-back calls, so the larger of what the host and
+    the card take a call; ``device_ms``: the card's share (profiler);
+    ``host_us``: the host's share (no synchronisation). Where ms is near
+    host_us / 1000 and far above device_ms, the host sets the time."""
+    dev_ms, n = device_time_ms(fn)
+    return {"ms": cuda_time_ms(fn, reps, warmup), "device_ms": dev_ms,
+            "host_us": host_time_us(fn, reps, warmup), "device_launches": n}
 
 
 def make_sequence(n_frames, disparity=8, step=3, seed=0, h=None, w=None):
@@ -201,7 +268,7 @@ def kernel_corr(dev):
     tol = 1e-4    # f32 sums of 256 bf16 products, in different orders
     require(err <= tol, f"corr lookup max |err| {err} > {tol}")
     saved = K1.launches
-    ms = cuda_time_ms(kernel)
+    t = measure(kernel)
     plain_ms = cuda_time_ms(plain, reps=3, warmup=1)
     K1.launches = saved
     # bytes: f1, the 4 f2 levels and coords read once, 4 outputs written once
@@ -222,7 +289,7 @@ def kernel_corr(dev):
     return {"name": "corr_window_lookup", "route": "cuda",
             "source": "robust_pose_tpu_torch/csrc/corr_onthefly.cu",
             "replaces": "robust_pose_tpu/ops/pallas_corr_onthefly.py:64",
-            "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "tol": tol, **t, "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_FLOPS
             else "operations",
@@ -241,7 +308,8 @@ def kernel_instance_norm(dev):
     b = 2 * T_WINDOW
     shapes = [(H // 2, W // 2, 64), (H // 4, W // 4, 96), (H // 8, W // 8, 128)]
     per = []
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
+    tot = {"ms": 0.0, "device_ms": 0.0, "host_us": 0.0, "device_launches": 0.0,
+           "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
     err_all = 0.0
     for h, w, c in shapes:
         x = (torch.randn(b, h, w, c, generator=g, device=dev) * 2.0 + 0.5
@@ -256,7 +324,7 @@ def kernel_instance_norm(dev):
         err_all = max(err_all, float((s_k - s_p).abs().max()),
                       float((ss_k - ss_p).abs().max()))
         saved = K2.launches
-        ms = cuda_time_ms(lambda: K2.instance_norm_stats(x))
+        t = measure(lambda: K2.instance_norm_stats(x))
         K2.launches = saved
         plain_ms = cuda_time_ms(lambda: K2.instance_norm_stats_plain(x), reps=5)
         lib_ms = cuda_time_ms(lambda: (torch.sum(x, (1, 2), dtype=torch.float32),
@@ -264,16 +332,17 @@ def kernel_instance_norm(dev):
                                                  dtype=torch.float32)))
         nbytes = x.numel() * 2 + 2 * b * c * 4
         ops = 3 * x.numel()          # add, multiply-add per element (f32)
-        per.append({"shape": [b, h, w, c], "ms": ms, "plain_ms": plain_ms,
+        per.append({"shape": [b, h, w, c], **t, "plain_ms": plain_ms,
                     "library_ms": lib_ms, "rel_err": err})
-        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+        for k, v in (*t.items(), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                      ("bytes", nbytes), ("ops", ops)):
             tot[k] += 5 * v
     bound = max(tot["bytes"] / HBM_BYTES_PER_S, tot["ops"] / F32_FLOPS) * 1e3
     return {"name": "instance_norm_stats", "route": "triton",
             "source": "robust_pose_tpu_torch/ops/instance_norm.py",
             "replaces": "robust_pose_tpu/ops/pallas_instance_norm.py:27",
-            "max_abs_err": err_all, "tol": "rel 1e-5", "ms": tot["ms"],
+            "max_abs_err": err_all, "tol": "rel 1e-5",
+            **{k: tot[k] for k in ("ms", "device_ms", "host_us", "device_launches")},
             "plain_ms": tot["plain_ms"], "bound_ms": bound,
             "bound_by": "bytes" if tot["bytes"] / HBM_BYTES_PER_S
             >= tot["ops"] / F32_FLOPS else "operations",
@@ -341,7 +410,7 @@ def kernel_normal_eq(dev):
     require(err_k64 <= 1e-4, f"normal_eq vs f64: rel err {err_k64} > 1e-4")
     require(err_kp <= tol_kp, f"normal_eq vs plain: rel err {err_kp} > {tol_kp}")
     saved = K3.launches
-    ms = cuda_time_ms(lambda: K3.normal_equations(pose, planes, kvec, lw, H, W))
+    t = measure(lambda: K3.normal_equations(pose, planes, kvec, lw, H, W))
     K3.launches = saved
     plain_ms = cuda_time_ms(
         lambda: K3.normal_equations_plain(pose, planes, kvec, lw, H, W), reps=5)
@@ -357,7 +426,7 @@ def kernel_normal_eq(dev):
             "rel_err": {"kernel_vs_f64": err_k64, "plain_vs_f64": err_p64,
                         "kernel_vs_plain": err_kp},
             "tol": {"kernel_vs_f64": 1e-4, "kernel_vs_plain": tol_kp},
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            **t, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOPS
             else "operations",
             "library_ms": None, "unit": "one H/g/cost build (1 launch)",
@@ -467,8 +536,8 @@ def kernel_lanewise(dev):
     require(err5c <= 1e-6 * scale_c, f"lanewise dcorr max |err| {err5c}")
     require(err5x <= 1e-5 * scale_x, f"lanewise dcoords max |err| {err5x}")
     del out_k, out_p, res_k, res_p
-    ms4 = cuda_time_ms(fwd)
-    ms5 = cuda_time_ms(bwd)
+    t4 = measure(fwd)
+    t5 = measure(bwd)
     L.launches, L.bwd_launches = saved
     plain4 = cuda_time_ms(fwd_plain, reps=3, warmup=1)
     plain5 = cuda_time_ms(bwd_plain, reps=3, warmup=1)
@@ -498,17 +567,17 @@ def kernel_lanewise(dev):
               + len(pyramid) * b * 81 * n * 4 + len(pyramid) * b * n * 2 * 4)
     ops5 = len(pyramid) * b * n * (10 * 10 * 3 + 9 * 10 * 8)
     out = []
-    for name, rep, err, ms, plain, lib_ms, nbytes, ops, unit in (
+    for name, rep, err, t, plain, lib_ms, nbytes, ops, unit in (
             ("lanewise_lookup", "robust_pose_tpu/ops/pallas_lookup_lanewise.py:72",
-             err4, ms4, plain4, lib4, bytes4, ops4, "one 4-level lookup (4 launches)"),
+             err4, t4, plain4, lib4, bytes4, ops4, "one 4-level lookup (4 launches)"),
             ("lanewise_lookup_bwd",
              "robust_pose_tpu/ops/pallas_lookup_lanewise.py:153",
-             max(err5c, err5x), ms5, plain5, lib5, bytes5, ops5,
+             max(err5c, err5x), t5, plain5, lib5, bytes5, ops5,
              "one 4-level lookup backward (4 launches)")):
         t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
         out.append({"name": name, "route": "cuda",
                     "source": "robust_pose_tpu_torch/csrc/corr_lanewise.cu",
-                    "replaces": rep, "max_abs_err": err, "ms": ms,
+                    "replaces": rep, "max_abs_err": err, **t,
                     "plain_ms": plain, "bound_ms": max(t_b, t_o) * 1e3,
                     "bound_by": "bytes" if t_b >= t_o else "operations",
                     "library_ms": lib_ms, "unit": unit, "bytes": nbytes,
@@ -521,11 +590,12 @@ def kernel_lanewise(dev):
     return out
 
 
-def pixel_inputs(dev, b, h8, w8, dtype, far=False, seed=6):
+def pixel_inputs(dev, b, h8, w8, dtype, centres="near", seed=6):
     """K6/K7 inputs: the 4-level all-pairs volume (B, N, Hl, Wl) of random
-    C = 256 features (RAFT's build_corr_pyramid) and centres (B, H, W, 2)
-    near the identity with 200 queries a window off the level, or, with
-    ``far``, the centres 3 x base - 50 (most windows wholly or partly off)."""
+    C = 256 features (RAFT's build_corr_pyramid) and centres (B, H, W, 2):
+    ``near`` the identity with 200 queries a window off the level; ``far``,
+    3 x base - 50 (most windows wholly or partly off); ``ragged``, near the
+    identity with a few queries far off, huge, infinite and NaN."""
     import torch
 
     from robust_pose_tpu_torch.models.raft import build_corr_pyramid
@@ -538,11 +608,20 @@ def pixel_inputs(dev, b, h8, w8, dtype, far=False, seed=6):
                             torch.arange(w8, device=dev, dtype=torch.float32),
                             indexing="ij")
     base = torch.stack([xs, ys], -1)[None].expand(b, h8, w8, 2)
-    if far:
+    if centres == "far":
         coords = base * 3.0 - 50.0
     else:
         coords = base + 4.0 * torch.randn(b, h8, w8, 2, generator=g, device=dev)
-        coords.view(b, -1, 2)[:, :200] -= 40.0
+        flat = coords.view(b, -1, 2)
+        if centres == "near":
+            flat[:, :200] -= 40.0
+        else:
+            flat[:, :20] -= 40.0
+            flat[:, 30] = float("nan")
+            flat[:, 31, 0] = float("nan")
+            flat[:, 32, 1] = float("nan")
+            flat[:, 33] = 1e30
+            flat[:, 34] = float("-inf")
     return pyramid, coords.contiguous()
 
 
@@ -557,41 +636,91 @@ def pixel_lookup_plain(pyramid, coords):
             .reshape(b, n, 81).transpose(1, 2) for l, v in enumerate(pyramid)]
 
 
+def lookup_err(got, ref, what):
+    """max |got - ref| over two lists of f32 tensors whose NaNs (a NaN
+    centre's outputs) must sit at the same places."""
+    import torch
+
+    worst = 0.0
+    for g, r in zip(got, ref):
+        require(g.shape == r.shape and g.dtype == torch.float32,
+                f"{what}: {tuple(g.shape)} {g.dtype} vs {tuple(r.shape)}")
+        nan = torch.isnan(r)
+        require(torch.equal(torch.isnan(g), nan), f"{what}: NaNs differ")
+        worst = max(worst, float(torch.where(nan, 0.0, g - r).abs().max()))
+    return worst
+
+
+def same_bits(a, b):
+    import torch
+
+    return all(torch.equal(x.contiguous().view(torch.int32),
+                           y.contiguous().view(torch.int32)) for x, y in zip(a, b))
+
+
 def kernel_pixel(dev):
     """K6 and K7 at the f2m path's shapes: the temporal step (B = 1) and the
     batched precompute (B = T = 8), N = 64 x 80 queries, bf16 volumes, all
-    4 levels; plus a small f32 case with far-off centres. Each against the
-    plain version (the kernels round as it does: tol 1e-6), timed beside
-    upstream RAFT's grid_sample lookup on the same volumes."""
+    4 levels in one launch; plus a small f32 case with far-off centres and
+    a ragged bf16 case (B = 3, 15 x 19: N no multiple of 32 or 8, a 1 x 2
+    coarsest level, NaN and infinite centres), both in the pyramid's
+    (B, 81, N) layout and the level functions' (M, 81). Each against the
+    plain version (the kernels round as it does: tol 1e-6) and twice for
+    the same bits, timed beside upstream RAFT's grid_sample lookup on the
+    same volumes and beside an empty kernel's launch."""
     import torch
 
     from robust_pose_tpu_torch.ops import corr_pixel as KP
 
     saved = (KP.launches, KP.grouped_launches)
-    fns = {"pixel_lookup": KP.pixel_lookup_pyramid,
-           "grouped_lookup": KP.grouped_lookup_pyramid}
+    fns = {"pixel_lookup": (KP.pixel_lookup_pyramid, KP.pixel_lookup_level),
+           "grouped_lookup": (KP.grouped_lookup_pyramid, KP.grouped_lookup_level)}
     tol = 1e-6
     err = {k: 0.0 for k in fns}
-    small, small_coords = pixel_inputs(dev, 2, 16, 20, torch.float32, far=True)
-    ref = pixel_lookup_plain(small, small_coords)
+
+    def check(pyramid, coords, levels):
+        """Both kernels against the plain version on these inputs, in the
+        pyramid layout and, with ``levels``, level by level in (M, 81)."""
+        b, n = pyramid[0].shape[:2]
+        ref = pixel_lookup_plain(pyramid, coords)
+        for name, (pyr_fn, lvl_fn) in fns.items():
+            got = pyr_fn(pyramid, coords)
+            require(len({g.untyped_storage().data_ptr() for g in got}) == 1
+                    and all(g.shape == (b, 81, n) for g in got),
+                    f"{name}: the levels are not views of one buffer")
+            require(same_bits(got, pyr_fn(pyramid, coords)),
+                    f"{name}: two runs differ")
+            err[name] = max(err[name], lookup_err(got, ref, name))
+            if not levels:
+                continue
+            vols = [v.reshape(b * n, *v.shape[2:]) for v in pyramid]
+            cs = [coords.reshape(b * n, 2) / 2 ** l for l in range(len(vols))]
+            got = [lvl_fn(v, c) for v, c in zip(vols, cs)]
+            require(same_bits(got, [lvl_fn(v, c) for v, c in zip(vols, cs)]),
+                    f"{name}: two runs differ (level layout)")
+            err[name] = max(err[name], lookup_err(
+                got, [r.transpose(1, 2).reshape(b * n, 81) for r in ref], name))
+        return ref
+
+    ref = check(*pixel_inputs(dev, 2, 16, 20, torch.float32, "far"), levels=True)
     require(any(bool((r != 0).any()) for r in ref), "pixel lookup: far case all zero")
-    for name, fn in fns.items():
-        err[name] = max(float((k - p).abs().max())
-                        for k, p in zip(fn(small, small_coords), ref))
+    ref = check(*pixel_inputs(dev, 3, 15, 19, torch.bfloat16, "ragged"), levels=True)
+    require(all(bool(torch.isnan(r).any()) for r in ref)
+            and tuple(ref[-1].shape) == (3, 81, 285),
+            "pixel lookup: the ragged case lost its NaN centres")
+    on_card = torch.empty(0, device=dev)
+    empty = measure(lambda: KP.noop_launch(on_card))
     per_shape = {k: [] for k in fns}
     for b in (1, T_WINDOW):
         pyramid, coords = pixel_inputs(dev, b, H // 8, W // 8, torch.bfloat16)
         n = pyramid[0].shape[1]
-        ref = pixel_lookup_plain(pyramid, coords)
-        for name, fn in fns.items():
-            err[name] = max(err[name], max(float((k - p).abs().max())
-                                           for k, p in zip(fn(pyramid, coords), ref)))
-        del ref
+        check(pyramid, coords, levels=False)
         plain_ms = cuda_time_ms(lambda: pixel_lookup_plain(pyramid, coords),
                                 reps=3, warmup=1)
         vols, grids, lib = grid_sample_yardstick(
             [v.reshape(b * n, 1, *v.shape[2:]).float() for v in pyramid], coords)
         lib_ms = cuda_time_ms(lib, reps=5)
+        lib_device_ms, _ = device_time_ms(lib)
         del vols, grids, lib
         taps = window_taps([v.shape[2:] for v in pyramid], coords.reshape(b, n, 2))
         # bytes: the in-level taps (bf16), the centres, the f32 outputs;
@@ -599,14 +728,21 @@ def kernel_pixel(dev):
         nbytes = taps * 2 + coords.numel() * 4 + len(pyramid) * b * 81 * n * 4
         ops = len(pyramid) * b * n * (9 * 10 * 3 + 81 * 3)
         t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
-        for name, fn in fns.items():
+        vol0 = pyramid[0].reshape(b * n, *pyramid[0].shape[2:])
+        c0 = coords.reshape(b * n, 2)
+        for name, (pyr_fn, lvl_fn) in fns.items():
+            t = measure(lambda: pyr_fn(pyramid, coords))
+            require(t["device_launches"] <= 1,
+                    f"{name}: {t['device_launches']} device launches a pyramid")
             per_shape[name].append({
-                "batch": b, "ms": cuda_time_ms(lambda: fn(pyramid, coords)),
-                "plain_ms": plain_ms, "library_ms": lib_ms,
+                "batch": b, **t, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "library_device_ms": lib_device_ms,
+                # level 0 alone in the level functions' (M, 81) layout
+                "level0_m81_device_ms": device_time_ms(lambda: lvl_fn(vol0, c0))[0],
                 "bound_ms": max(t_b, t_o) * 1e3,
                 "bound_by": "bytes" if t_b >= t_o else "operations",
                 "bytes": nbytes, "ops": ops, "taps_in_level": taps})
-        del pyramid, coords
+        del pyramid, coords, vol0, c0
         torch.cuda.empty_cache()
     KP.launches, KP.grouped_launches = saved
     for name in fns:
@@ -618,10 +754,11 @@ def kernel_pixel(dev):
                     "source": "robust_pose_tpu_torch/csrc/corr_pixel.cu",
                     "replaces": f"robust_pose_tpu/ops/pallas_lookup.py:{line}",
                     "max_abs_err": err[name], "tol": tol,
-                    **{k: step[k] for k in ("ms", "plain_ms", "bound_ms",
-                                            "bound_by", "library_ms")},
-                    "unit": "one 4-level lookup at B = 1 (4 launches)",
-                    "per_shape": per_shape[name]})
+                    **{k: step[k] for k in ("ms", "device_ms", "host_us",
+                                            "device_launches", "plain_ms",
+                                            "bound_ms", "bound_by", "library_ms")},
+                    "unit": "one 4-level lookup at B = 1 (1 launch)",
+                    "empty_launch": empty, "per_shape": per_shape[name]})
     return out
 
 
@@ -633,7 +770,7 @@ def phase_kernels(dev):
            *kernel_lanewise(dev), *kernel_pixel(dev)]
     torch.cuda.synchronize()
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
-          "kernels": out})
+          "profiler_retries": profiler_retries, "kernels": out})
     return out
 
 
@@ -1202,6 +1339,8 @@ def phase_train(dev, smi):
 F2M_POOL_FRAMES = 4           # pool pre-sized to 4 frames, as bench.py does
 F2M_WINDOW_K1 = (48, 48)      # K1 launches: precompute (4 levels x 12
                               # iterations at batch T), then per frame
+F2M_WINDOW_K7 = (12, 12)      # K7 (lookup "grouped"): one launch a 4-level
+                              # lookup, 12 iterations, precompute and frame
 F2M_WINDOW_K2 = (15, 15)      # K2: one fnet pass in the precompute, one a frame
 
 
@@ -1285,11 +1424,12 @@ def f2m_slam():
     return slam
 
 
-def f2m_reruns(launches, lookup_key, n_windows):
+def f2m_reruns(launches, lookup_key, n_windows, per_window=F2M_WINDOW_K1):
     """Frame loops re-run after a pool overflow (a window's loop runs again
     from its carries when compaction frees room), from the lookup launches:
-    each window runs one precompute, each loop T per-frame lookups."""
-    pre, per = F2M_WINDOW_K1
+    each window runs one precompute, each loop T per-frame lookups
+    (``per_window``: the launches of the precompute and of one frame)."""
+    pre, per = per_window
     loops, rest = divmod(launches[lookup_key] - pre * n_windows, per * T_WINDOW)
     require(rest == 0 and loops >= n_windows, f"f2m: {lookup_key} launches {launches}")
     return loops - n_windows
@@ -1367,7 +1507,7 @@ def phase_f2m(dev, smi):
     torch.cuda.synchronize()
     dt_g = time.perf_counter() - t0
     g_launches = launch_counts()
-    g_reruns = f2m_reruns(g_launches, "grouped_lookup", 1)
+    g_reruns = f2m_reruns(g_launches, "grouped_lookup", 1, F2M_WINDOW_K7)
     require(g_launches["corr_window_lookup"] == 0 and g_launches["pixel_lookup"] == 0,
             f"f2m grouped: launches {g_launches}")
     dist = tangent_distance(g_poses, ref_poses)
@@ -1398,6 +1538,12 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     smi = phase_device()
+    if sys.argv[1:] == ["kernels"]:
+        # the kernels phase alone, three times over (its spread), for work
+        # on one kernel; prints no result line
+        for _ in range(3):
+            phase_kernels(dev)
+        return 0
     kernels = phase_kernels(dev)
     phase_slice(dev)
     launches = phase_main(dev, smi)
@@ -1415,7 +1561,8 @@ def main():
         k["launches"] = launches[k["name"]]
     emit({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-        "plain_ms", "bound_ms", "bound_by", "library_ms")} for k in kernels]})
+        "device_ms", "host_us", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")} for k in kernels]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -19,6 +19,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 _SRC_DIR = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / "build" / "robust_pose_tpu_torch"
@@ -114,7 +116,9 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream_of(t) -> ctypes.c_void_p:
-    import torch
-
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream_of(t) -> int:
+    """The current CUDA stream of ``t``'s device, as the address a C entry
+    takes (an int: ``c_void_p`` argument types convert it). Read straight
+    from the binding that ``torch.cuda.current_stream`` wraps: building
+    the ``Stream`` object costs the host more than the launch itself."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
