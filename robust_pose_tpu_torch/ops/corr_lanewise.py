@@ -1,7 +1,7 @@
 """Lane-wise RAFT correlation lookup over the transposed volume: the
-forward kernel (K4) and its backward kernel (K5), both CUDA C++, in one
-``torch.autograd.Function`` per pyramid level, with the plain PyTorch
-version of each.
+forward kernel (K4) and its backward kernel (K5), both CUDA C++, each one
+launch for every level of a pyramid, in one ``torch.autograd.Function`` over
+the pyramid, with the plain PyTorch version of each.
 
 Replaces ``robust_pose_tpu/ops/pallas_lookup_lanewise.py``:
 ``_lanewise_kernel`` (forward) and ``_lanewise_bwd_kernel`` (its custom
@@ -14,6 +14,15 @@ query pixels minor; coords (B, N, 2) are (x, y) in level-0 pixels and are
 divided by ``level_scale``; the output is (B, D*D, N) f32, dy-major,
 D = 2r + 1; the backward gives dcorr in the volume's dtype and
 dcoords = [dcx, dcy] / level_scale.
+
+The pyramid entries take the levels of ``build_corr_pyramid_t`` (level l
+the pooled half of level l - 1, read at ``level_scale * 2^l``), fill one
+(B, L*81, N) f32 buffer, level l at channels 81 l .. 81 l + 80, and return
+its per-level (B, 81, N) views, the list RAFT's motion encoder takes. The
+backward takes the cotangent of that buffer, writes every element of every
+level's dcorr once (they come from ``torch.empty``) and sums dcoords over
+the levels in level order. The one-level functions are the one-level case
+of the same kernels.
 
 The plain versions serve the CPU (where the wrappers take them) and
 chip_smoke.py's comparison on the card. The forward gathers the
@@ -33,15 +42,20 @@ from robust_pose_tpu_torch.ops import _build
 
 Tensor = torch.Tensor
 
-launches = 0       # K4 launches (one per pyramid level and call)
-bwd_launches = 0   # K5 launches
+RADIUS = 4
+D = 2 * RADIUS + 1
+MAX_LEVELS = 4     # levels one launch takes (RAFT's pyramid has 4)
 
-# corr, coords, out, B, N, Hl, Wl, radius, inv_scale, dtype, stream
-_FWD_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+launches = 0       # K4 launches (one per call, whatever the levels)
+bwd_launches = 0   # K5 launches (likewise)
+
+# the 4 level pointers, coords, out, B, N, H0, W0, L, radius, 1 / level 0's
+# scale, dtype, stream
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-# corr, coords, g, dcorr, dcoords, B, N, Hl, Wl, radius, inv_scale, dtype,
-# stream
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+# the 4 level pointers, coords, g, the 4 dcorr pointers, dcoords, then as
+# the forward
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -158,105 +172,206 @@ def lanewise_bwd_plain(corr_t: Tensor, coords: Tensor, g: Tensor,
     return dflat.reshape(b, hl, wl, n).to(corr_t.dtype), dcoords
 
 
-def _check(corr_t: Tensor, coords: Tensor, radius: int, what: str):
-    b, hl, wl, n = corr_t.shape
-    if coords.shape != (b, n, 2) or coords.dtype != torch.float32:
-        raise ValueError(f"{what}: coords {tuple(coords.shape)} "
-                         f"{coords.dtype}, expected ({b}, {n}, 2) f32")
-    if corr_t.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{what}: volume dtype {corr_t.dtype}")
-    if radius != 4:
-        raise ValueError(f"{what}: radius {radius} (the kernel takes 4)")
-    if not (corr_t.is_contiguous() and coords.is_contiguous()):
-        raise ValueError(f"{what}: inputs must be contiguous")
-    if corr_t.device != coords.device:
-        raise ValueError(f"{what}: inputs on {corr_t.device} and {coords.device}")
 
 
-def lanewise_fwd(corr_t: Tensor, coords: Tensor, radius: int,
-                 level_scale: float) -> Tensor:
-    """K4 on CUDA tensors, the plain version on CPU tensors."""
+def _check(vols, coords: Tensor, what: str):
+    """Raise unless ``vols`` are 1 to 4 contiguous (B, H0 >> l, W0 >> l, N)
+    volumes of one dtype (f32 or bf16) and device, and ``coords`` is a
+    contiguous f32 (B, N, 2) on that device. One pass a call, for the plain
+    version and the kernels alike."""
+    if not 1 <= len(vols) <= MAX_LEVELS:
+        raise ValueError(f"{what}: {len(vols)} levels; 1 to {MAX_LEVELS}")
+    first = vols[0]
+    if first.ndim != 4:
+        raise ValueError(f"{what}: level 0 is {tuple(first.shape)}; expected "
+                         "(B, Hl, Wl, N)")
+    b, h0, w0, n = first.shape
+    if first.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: volume dtype {first.dtype}; float32 or bfloat16")
+    if coords.shape != (b, n, 2):
+        raise ValueError(f"{what}: coords {tuple(coords.shape)}; expected "
+                         f"({b}, {n}, 2) for level 0 {tuple(first.shape)}")
+    if coords.dtype != torch.float32:
+        raise TypeError(f"{what}: coords {coords.dtype}; expected float32")
+    if not coords.is_contiguous():
+        raise ValueError(f"{what}: coords is not contiguous")
+    if coords.device != first.device:
+        raise ValueError(f"{what}: volume on {first.device}, coords on "
+                         f"{coords.device}")
+    for lvl, v in enumerate(vols):
+        if v.shape != (b, h0 >> lvl, w0 >> lvl, n):
+            raise ValueError(
+                f"{what}: level {lvl} is {tuple(v.shape)}; expected "
+                f"{(b, h0 >> lvl, w0 >> lvl, n)}, level 0's "
+                f"{tuple(first.shape)} pooled by {2 ** lvl}")
+        if v.dtype != first.dtype:
+            raise TypeError(f"{what}: level {lvl} is {v.dtype}, level 0 "
+                            f"{first.dtype}")
+        if v.device != first.device:
+            raise ValueError(f"{what}: level {lvl} on {v.device}, level 0 on "
+                             f"{first.device}")
+        if not v.is_contiguous():
+            raise ValueError(f"{what}: level {lvl} is not contiguous")
+
+
+def _kernel_args(vols, radius: int, level_scale: float, what: str):
+    """What both C entries take after their pointers: B, N, H0, W0, L,
+    radius, 1 / level 0's scale, dtype, stream."""
+    if radius != RADIUS:
+        raise ValueError(f"{what}: radius {radius} (the kernel takes {RADIUS})")
+    b, h0, w0, n = vols[0].shape
+    return (b, n, h0, w0, len(vols), radius, 1.0 / float(level_scale),
+            1 if vols[0].dtype == torch.bfloat16 else 0,
+            _build.stream_of(vols[0]))
+
+
+def _level_ptrs(vols):
+    return [v.data_ptr() for v in vols] + [None] * (MAX_LEVELS - len(vols))
+
+
+def lanewise_fwd_pyramid(pyramid_t, coords: Tensor, radius: int = RADIUS,
+                         level_scale: float = 1.0,
+                         what: str = "lanewise_fwd_pyramid") -> Tensor:
+    """K4 on CUDA tensors (one launch), the plain version level by level on
+    CPU tensors.
+
+    :param pyramid_t: 1 to 4 (B, Hl, Wl, N) volumes, level l the pooled half
+        of level l - 1, read at ``coords / (level_scale * 2^l)``
+    :param coords: (B, N, 2) f32 sample centres (x, y)
+    :return: (B, L*D*D, N) f32, level l at channels D*D l .. D*D (l + 1) - 1
+    """
     global launches
-    if plain_or_cuda(corr_t, "lanewise_fwd"):
-        return lanewise_fwd_plain(corr_t, coords, radius, level_scale)
-    _check(corr_t, coords, radius, "lanewise_fwd")
-    b, hl, wl, n = corr_t.shape
-    d = 2 * radius + 1
-    out = torch.empty((b, d * d, n), dtype=torch.float32, device=corr_t.device)
+    vols = list(pyramid_t)
+    _check(vols, coords, what)
+    plain = plain_or_cuda(vols[0], what)
+    b, _, _, n = vols[0].shape
+    dd = (2 * radius + 1) ** 2
+    out = torch.empty((b, len(vols) * dd, n), dtype=torch.float32,
+                      device=coords.device)
+    if plain:
+        for lvl, (v, o) in enumerate(zip(vols, out.split(dd, dim=1))):
+            o.copy_(lanewise_fwd_plain(v, coords, radius, level_scale * 2 ** lvl))
+        return out
+    args = _kernel_args(vols, radius, level_scale, what)
     fn = _build.function("corr_lanewise", "lanewise_fwd", _FWD_ARGTYPES)
-    _build.check(fn(_build.ptr(corr_t), _build.ptr(coords), _build.ptr(out),
-                    b, n, hl, wl, radius, 1.0 / float(level_scale),
-                    1 if corr_t.dtype == torch.bfloat16 else 0,
-                    _build.stream_of(corr_t)), "lanewise_fwd")
+    _build.check(fn(*_level_ptrs(vols), coords.data_ptr(), out.data_ptr(),
+                    *args), what)
     launches += 1
     return out
 
 
+def lanewise_bwd_pyramid(pyramid_t, coords: Tensor, g: Tensor,
+                         radius: int = RADIUS, level_scale: float = 1.0,
+                         what: str = "lanewise_bwd_pyramid"):
+    """K5 on CUDA tensors (one launch, every element of every dcorr written
+    by it), the plain version level by level on CPU tensors.
+
+    :param g: (B, L*D*D, N) f32 cotangent of :func:`lanewise_fwd_pyramid`
+    :return: the list of dcorr (B, Hl, Wl, N) in the volumes' dtype, and
+        dcoords (B, N, 2) f32, the levels' summed in level order
+    """
+    global bwd_launches
+    vols = list(pyramid_t)
+    _check(vols, coords, what)
+    plain = plain_or_cuda(vols[0], what)
+    b, _, _, n = vols[0].shape
+    dd = (2 * radius + 1) ** 2
+    if (g.shape != (b, len(vols) * dd, n) or g.dtype != torch.float32
+            or not g.is_contiguous() or g.device != coords.device):
+        raise ValueError(f"{what}: cotangent {tuple(g.shape)} {g.dtype} on "
+                         f"{g.device}; expected contiguous float32 "
+                         f"{(b, len(vols) * dd, n)}")
+    if plain:
+        dcorrs, dcoords = [], None
+        for lvl, (v, gl) in enumerate(zip(vols, g.split(dd, dim=1))):
+            dc, dx = lanewise_bwd_plain(v, coords, gl, radius,
+                                        level_scale * 2 ** lvl)
+            dcorrs.append(dc)
+            dcoords = dx if dcoords is None else dcoords + dx
+        return dcorrs, dcoords
+    args = _kernel_args(vols, radius, level_scale, what)
+    dcorrs = [torch.empty_like(v) for v in vols]
+    dcoords = torch.empty((b, n, 2), dtype=torch.float32, device=coords.device)
+    fn = _build.function("corr_lanewise", "lanewise_bwd", _BWD_ARGTYPES)
+    _build.check(fn(*_level_ptrs(vols), coords.data_ptr(), g.data_ptr(),
+                    *_level_ptrs(dcorrs), dcoords.data_ptr(), *args), what)
+    bwd_launches += 1
+    return dcorrs, dcoords
+
+
+def lanewise_fwd(corr_t: Tensor, coords: Tensor, radius: int,
+                 level_scale: float) -> Tensor:
+    """K4 for one level: (B, Hl, Wl, N), (B, N, 2) -> (B, D*D, N) f32."""
+    return lanewise_fwd_pyramid([corr_t], coords, radius, level_scale,
+                                "lanewise_fwd")
+
+
 def lanewise_bwd(corr_t: Tensor, coords: Tensor, g: Tensor, radius: int,
                  level_scale: float):
-    """K5 on CUDA tensors, the plain version on CPU tensors."""
-    global bwd_launches
-    if plain_or_cuda(corr_t, "lanewise_bwd"):
-        return lanewise_bwd_plain(corr_t, coords, g, radius, level_scale)
-    _check(corr_t, coords, radius, "lanewise_bwd")
-    b, hl, wl, n = corr_t.shape
-    d = 2 * radius + 1
-    if (g.shape != (b, d * d, n) or g.dtype != torch.float32
-            or not g.is_contiguous()):
-        raise ValueError(f"lanewise_bwd: cotangent {tuple(g.shape)} {g.dtype}")
-    dcorr = torch.empty_like(corr_t)
-    dcoords = torch.empty((b, n, 2), dtype=torch.float32, device=corr_t.device)
-    fn = _build.function("corr_lanewise", "lanewise_bwd", _BWD_ARGTYPES)
-    _build.check(fn(_build.ptr(corr_t), _build.ptr(coords), _build.ptr(g),
-                    _build.ptr(dcorr), _build.ptr(dcoords), b, n, hl, wl,
-                    radius, 1.0 / float(level_scale),
-                    1 if corr_t.dtype == torch.bfloat16 else 0,
-                    _build.stream_of(corr_t)), "lanewise_bwd")
-    bwd_launches += 1
-    return dcorr, dcoords
+    """K5 for one level: dcorr (B, Hl, Wl, N) and dcoords (B, N, 2)."""
+    dcorrs, dcoords = lanewise_bwd_pyramid([corr_t], coords, g, radius,
+                                           level_scale, "lanewise_bwd")
+    return dcorrs[0], dcoords
 
 
-class _LanewiseLevel(torch.autograd.Function):
-    """K4 forward, K5 backward; the volume and the coords are saved (the
-    volume is built once per RAFT pass, outside the GRU iterations)."""
+class _LanewiseLookup(torch.autograd.Function):
+    """K4 forward, K5 backward, one launch each for the whole pyramid; the
+    volumes and the coords are saved (the volumes are built once per RAFT
+    pass, outside the GRU iterations)."""
 
     @staticmethod
-    def forward(ctx, corr_t, coords, radius, level_scale):
-        coords = coords.float().contiguous()
-        ctx.save_for_backward(corr_t, coords)
-        ctx.radius, ctx.level_scale = radius, level_scale
-        return lanewise_fwd(corr_t, coords, radius, level_scale)
+    def forward(ctx, coords, radius, level_scale, what, *pyramid_t):
+        ctx.save_for_backward(coords, *pyramid_t)
+        ctx.radius, ctx.level_scale, ctx.what = radius, level_scale, what
+        return lanewise_fwd_pyramid(pyramid_t, coords, radius, level_scale, what)
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        corr_t, coords = ctx.saved_tensors
-        dcorr, dcoords = lanewise_bwd(corr_t, coords, g.float().contiguous(),
-                                      ctx.radius, ctx.level_scale)
-        return (dcorr if ctx.needs_input_grad[0] else None,
-                dcoords if ctx.needs_input_grad[1] else None, None, None)
+        coords, *pyramid_t = ctx.saved_tensors
+        dcorrs, dcoords = lanewise_bwd_pyramid(
+            pyramid_t, coords, g.float().contiguous(), ctx.radius,
+            ctx.level_scale, ctx.what)
+        need = ctx.needs_input_grad
+        return (dcoords if need[0] else None, None, None, None,
+                *[d if k else None for d, k in zip(dcorrs, need[4:])])
 
 
 def lanewise_lookup_level(corr_t: Tensor, coords: Tensor, radius: int = 4,
                           level_scale: float = 1.0) -> Tensor:
     """Bilinear window lookup for one pyramid level, differentiable with
-    respect to the volume and the coords.
+    respect to the volume and the coords: the one-level case of
+    :func:`lanewise_lookup`'s kernels.
 
     :param corr_t: (B, Hl, Wl, N) transposed volume, f32 or bf16
     :param coords: (B, N, 2) sample centres (x, y) in level-0 pixels
     :return: (B, D*D, N) f32, dy-major
     """
-    return _LanewiseLevel.apply(corr_t.contiguous(), coords, radius,
-                                float(level_scale))
+    return _LanewiseLookup.apply(coords.float().contiguous(), radius,
+                                 float(level_scale), "lanewise_lookup_level",
+                                 corr_t.contiguous())
 
 
 def lanewise_lookup(pyramid_t, coords: Tensor, radius: int = 4):
-    """Full-pyramid lookup.
+    """Full-pyramid lookup, differentiable with respect to every level and
+    the coords: one K4 launch forward, one K5 launch backward.
 
-    :param pyramid_t: list of (B, Hl, Wl, N) from ``build_corr_pyramid_t``
-    :param coords: (B, H, W, 2) correspondence estimates (x, y), 1/8-res px
-    :return: list of per-level (B, D*D, N) f32 (N = H*W row-major)
+    :param pyramid_t: list of 1 to 4 (B, Hl, Wl, N) from
+        ``build_corr_pyramid_t``: contiguous, one dtype and device
+    :param coords: (B, H, W, 2) f32 correspondence estimates (x, y), 1/8-res
+        px, N = H*W row-major
+    :return: list of per-level (B, D*D, N) f32: views of one (B, L*D*D, N)
+        buffer
     """
+    what = "lanewise_lookup"
+    if coords.ndim != 4 or coords.shape[3] != 2:
+        raise ValueError(f"{what}: coords {tuple(coords.shape)}; expected "
+                         "(B, H, W, 2)")
+    if coords.dtype != torch.float32:
+        raise TypeError(f"{what}: coords {coords.dtype}; expected float32")
     b, h, w, _ = coords.shape
-    c = coords.reshape(b, h * w, 2)
-    return [lanewise_lookup_level(corr_t, c, radius, float(2 ** lvl))
-            for lvl, corr_t in enumerate(pyramid_t)]
+    c = coords.reshape(b, h * w, 2).contiguous()
+    pyramid_t = list(pyramid_t)
+    _check(pyramid_t, c, what)
+    out = _LanewiseLookup.apply(c, radius, 1.0, what, *pyramid_t)
+    return list(out.split((2 * radius + 1) ** 2, dim=1))
