@@ -13,10 +13,11 @@ Phases, each printing one JSON line:
                   source, in parallel).
 2. kernels     -- each hand-written kernel against its plain PyTorch version
                   on the card at the shapes of its path (K1-K3: 512x640 f2f,
-                  8-frame windows; K4-K5: the training step at batch 8,
-                  at noisy and at smooth centres; K6-K7: the f2m step at
-                  batch 1 and its precompute at 8; K4-K7 one launch a
-                  4-level lookup): max error vs the stated
+                  8-frame windows, K1 also at the f2m step's batch 1 and
+                  its precompute's 8; K4-K5: the training step at batch 8;
+                  K1, K4, K5 at noisy and at smooth centres; K6-K7: the f2m
+                  step at batch 1 and its precompute at 8; K1, K4-K7 one
+                  launch a 4-level lookup): max error vs the stated
                   tolerance; the time of one call three ways, ms (CUDA
                   events around back-to-back calls: the larger of the
                   host's and the card's share), device_ms (torch.profiler:
@@ -28,8 +29,9 @@ Phases, each printing one JSON line:
                   operations over the peak rate of their type).
 3. slice       -- the port's f2f path at 64x96 in f32 with TF32 off, once on
                   the card through the kernels and once on the CPU through
-                  the plain versions: poses, success flags and masks must
-                  agree.
+                  the plain versions (lookup "onthefly" on both: "auto"
+                  takes "xla" on the CPU): poses, success flags and masks
+                  must agree.
 4. main        -- production f2f at full width (512x640, T = 8, 12 GRU
                   iterations, 20 LM iterations, confidence heads, 3 UNet
                   levels, bf16 mixed precision), random seeded weights, the
@@ -51,9 +53,12 @@ Phases, each printing one JSON line:
                   and read just after, then one step under torch.profiler
                   (train_profile) by stage of PoseNetTrainer.train_step.
 8. f2m_slice   -- frame-to-model tracking at 64x96 in f32 on the card and on
-                  the CPU, with the default lookup and with lookup "grouped"
-                  (K7): first frame, one step, one 3-frame window; poses,
-                  flags, surfel counts and rendered masks must agree.
+                  the CPU, with lookup "onthefly" (K1) and "grouped" (K7):
+                  first frame, one step, one 3-frame window; poses, flags,
+                  surfel counts and rendered masks must agree. Then the
+                  pool's overflow redo with average_pts and surfel upscale
+                  2: a 4-frame window that outgrows its bucket, integer
+                  outputs equal bit for bit.
 9. f2m         -- production f2m at full width (configuration/
                   infer_scared.yaml: 100 LM iterations; the surfel pool
                   pre-sized to 4 frames as bench.py does), T = 8: first
@@ -133,12 +138,12 @@ def host_time_us(fn, reps=20, warmup=3):
 profiler_retries = 0          # device_time_ms traces that saw no kernel
 
 
-def device_time_ms(fn, reps=10):
-    """What one fn() costs the card: the summed duration of every kernel,
-    copy and memset it launches, from torch.profiler's device timeline,
-    mean over ``reps`` calls; and how many of them one call launches. A
-    trace this short now and then comes back without one device event: it
-    is then taken again, three times at most, and counted in
+def device_events(fn, reps=10):
+    """The device events (kernels, copies, memsets) of ``reps`` calls of
+    fn() in one torch.profiler trace, in the order they started. A trace
+    this short now and then comes back without one device event, and after
+    some hundred traces in one process several in a row can: it is then
+    taken again after a pause, five times at most, each retry counted in
     ``profiler_retries``."""
     global profiler_retries
     import torch
@@ -146,7 +151,7 @@ def device_time_ms(fn, reps=10):
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    for _ in range(3):
+    for attempt in range(5):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -156,10 +161,28 @@ def device_time_ms(fn, reps=10):
         ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)]
         if ev:
-            break
+            return sorted(ev, key=lambda e: e.time_range.start)
         profiler_retries += 1
-    require(ev, "device_time_ms: the profiler saw no kernel in 3 traces")
+        time.sleep(1.0 + attempt)
+    raise RuntimeError("check failed: the profiler saw no device event in 5 traces")
+
+
+def device_time_ms(fn, reps=10):
+    """What one fn() costs the card: the summed duration of every kernel,
+    copy and memset it launches, from torch.profiler's device timeline,
+    mean over ``reps`` calls; and how many of them one call launches."""
+    ev = device_events(fn, reps)
     return sum(e.time_range.elapsed_us() for e in ev) / reps / 1e3, len(ev) / reps
+
+
+def device_times_ms(fns, reps=10):
+    """The device ms of each of ``fns``, each launching one kernel, from
+    one trace of ``reps`` rounds of them: fewer traces than one apiece."""
+    ev = device_events(lambda: [f() for f in fns], reps)
+    require(len(ev) == len(fns) * reps,
+            f"device_times_ms: {len(ev)} device events for {len(fns)} x {reps} calls")
+    return [sum(e.time_range.elapsed_us() for e in ev[i::len(fns)]) / reps / 1e3
+            for i in range(len(fns))]
 
 
 def measure(fn, reps=20, warmup=3):
@@ -236,66 +259,210 @@ def phase_device():
 # phase 2
 # ---------------------------------------------------------------------------
 
-def kernel_corr(dev):
-    """K1 at the main path's shapes: B = 2T = 16, 64x80 queries, C = 256,
-    bf16 features (f2 pooled in f32, then cast), all 4 levels."""
+def smooth_flow(b, xs, ys):
+    """A flow field of the kind RAFT's GRU feeds a lookup: an affine term
+    and a sinusoid of 1.5-2 px with periods of 40 queries and more, its
+    phase shifted by the batch index. ``xs``, ``ys``: (H8, W8) query grid;
+    returns (B, H8, W8, 2)."""
+    import torch
+
+    ph = torch.arange(b, device=xs.device, dtype=torch.float32)[:, None, None]
+    h8, w8 = xs.shape
+    tau = 2.0 * np.pi
+    fx = (-1.5 + 0.01 * (xs - w8 / 2)
+          + 2.0 * torch.sin(tau * (xs / 48.0 + ys / 64.0) + ph))
+    fy = (0.4 + 0.008 * (ys - h8 / 2)
+          + 1.5 * torch.cos(tau * (xs / 64.0 - ys / 40.0) + 0.5 * ph))
+    return torch.stack([fx, fy], -1)
+
+
+def corr_inputs(dev, b, centres, dtype, h8=H // 8, w8=W // 8, seed=1):
+    """K1 inputs: f1 (B, H8, W8, 256) and the 4 levels of f2 (pooled in f32,
+    then cast to ``dtype``, as RAFT does) of random features, and centres
+    (B, H8, W8, 2): ``noisy``, the identity plus 4 px of noise drawn a query
+    (the input on record since K1 was first ported; no path feeds it);
+    ``smooth``, the identity plus ``smooth_flow``, what RAFT's GRU feeds
+    the lookup; both with 200 queries whose windows lie off the map;
+    ``ragged``, 2.5 px of noise with queries far off, huge, infinite and
+    NaN."""
     import torch
 
     from robust_pose_tpu_torch.ops import corr_onthefly as K1
 
-    g = torch.Generator(device=dev).manual_seed(1)
-    b, h8, w8, c = 2 * T_WINDOW, H // 8, W // 8, 256
-    f1 = torch.randn(b, h8 * w8, c, generator=g, device=dev).bfloat16()
-    f2 = torch.randn(b, h8, w8, c, generator=g, device=dev)
-    levels = [l.bfloat16().contiguous() for l in K1.pool_fmap_pyramid(f2)]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f1 = torch.randn(b, h8 * w8, 256, generator=g, device=dev).to(dtype)
+    f2 = torch.randn(b, h8, w8, 256, generator=g, device=dev)
+    levels = [l.to(dtype).contiguous() for l in K1.pool_fmap_pyramid(f2)]
     ys, xs = torch.meshgrid(torch.arange(h8, device=dev, dtype=torch.float32),
                             torch.arange(w8, device=dev, dtype=torch.float32),
                             indexing="ij")
-    coords = torch.stack([xs, ys], -1).reshape(1, -1, 2) + 4.0 * torch.randn(
-        b, h8 * w8, 2, generator=g, device=dev)
-    coords[:, :200] -= 40.0                       # windows off the map
-    coords = coords.contiguous()
-    scales = [float(2 ** l) for l in range(4)]
+    base = torch.stack([xs, ys], -1).reshape(1, -1, 2)
+    if centres == "smooth":
+        coords = base + smooth_flow(b, xs, ys).reshape(b, -1, 2)
+    else:
+        sd = 4.0 if centres == "noisy" else 2.5
+        coords = base + sd * torch.randn(b, h8 * w8, 2, generator=g, device=dev)
+    if centres == "ragged":
+        coords[:, :8] -= 40.0
+        coords[:, 8:12] = coords[:, 8:12] * 3.0 - 20.0
+        coords[:, 12] = float("nan")
+        coords[:, 13, 0] = float("nan")
+        coords[:, 14, 1] = float("nan")
+        coords[:, 15] = 1e30
+        coords[:, 16] = float("-inf")
+        coords[:, 17, 0] = float("inf")
+    else:
+        coords[:, :200] -= 40.0                   # windows off the map
+    return (f1.reshape(b, h8, w8, 256), levels,
+            coords.reshape(b, h8, w8, 2).contiguous())
 
-    def kernel():
-        return [K1.corr_lookup_level(f1, f2l, coords, 4, s)
-                for f2l, s in zip(levels, scales)]
 
-    def plain():
-        return [K1.corr_lookup_level_plain(f1, f2l, coords, 4, s)
-                for f2l, s in zip(levels, scales)]
+def corr_entries(f1, levels, coords):
+    """The calls of one K1 lookup on these inputs, each returning per-level
+    (B, 81, N) f32: the kernel through ``onthefly_lookup`` (RAFT's entry:
+    one launch a pyramid, or one a level in an earlier tree of the
+    package), the plain version, and ``level(l)``, level l alone through the
+    kernel with the queries in their 2-D tiles where the package has a
+    pyramid entry."""
+    from robust_pose_tpu_torch.ops import corr_onthefly as K1
 
-    err = max(float((k - p).abs().max()) for k, p in zip(kernel(), plain()))
-    tol = 1e-4    # f32 sums of 256 bf16 products, in different orders
-    require(err <= tol, f"corr lookup max |err| {err} > {tol}")
+    b, h8, w8, c = f1.shape
+    f1f, cs = f1.reshape(b, h8 * w8, c), coords.reshape(b, h8 * w8, 2)
+    kernel = lambda: K1.onthefly_lookup(f1, levels, coords)
+    plain = lambda: [K1.corr_lookup_level_plain(f1f, v, cs, 4, 2.0 ** l)
+                     for l, v in enumerate(levels)]
+    if hasattr(K1, "onthefly_lookup_pyramid"):
+        level = lambda l: K1.onthefly_lookup_pyramid(f1, [levels[l]], coords,
+                                                     level_scale=2.0 ** l)
+    else:
+        level = lambda l: K1.corr_lookup_level(f1f, levels[l], cs, 4, 2.0 ** l)
+    return kernel, plain, level
+
+
+def corr_check(f1, levels, coords, tol, what):
+    """K1 against its plain version (NaNs at the same places), the same
+    bits from two calls, and one buffer for the levels where the package
+    has a pyramid entry; returns the largest error."""
+    from robust_pose_tpu_torch.ops import corr_onthefly as K1
+
+    kernel, plain, _ = corr_entries(f1, levels, coords)
+    got = kernel()
+    err = lookup_err(got, plain(), f"corr {what}")
+    require(err <= tol, f"corr {what}: max |err| {err} > {tol}")
+    require(same_bits(got, kernel()), f"corr {what}: two runs differ")
+    if hasattr(K1, "onthefly_lookup_pyramid"):
+        require(len({o.untyped_storage().data_ptr() for o in got}) == 1,
+                f"corr {what}: the levels are not views of one buffer")
+    return err
+
+
+def corr_bound(f1, levels, coords):
+    """Bytes: f1, the levels and the centres read once, the outputs written
+    once; operations: one C-long multiply-add per in-level window pixel
+    (the 10 x 10 a radius-4 bilinear window touches), at the peak rate of
+    the inputs' type. Returns (bound ms, what bounds it, bytes, ops)."""
+    import torch
+
+    b, h8, w8, c = f1.shape
+    n = h8 * w8
+    esz = f1.element_size()
+    nbytes = (f1.numel() * esz + sum(l.numel() * esz for l in levels)
+              + coords.numel() * 4 + len(levels) * b * 81 * n * 4)
+    ops = window_taps([l.shape[1:3] for l in levels],
+                      coords.reshape(b, n, 2)) * c * 2
+    peak = BF16_FLOPS if f1.dtype == torch.bfloat16 else F32_FLOPS
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / peak
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations", nbytes, ops
+
+
+def kernel_corr(dev):
+    """K1 at the main path's shapes, 64 x 80 queries, C = 256, bf16, all 4
+    levels: B = 16 (an f2f window, 2T) at ``noisy`` centres (the row on
+    record) and at ``smooth`` ones, B = 1 (the f2m per-frame step) and
+    B = 8 (the f2m precompute) at ``smooth``; each against the plain
+    version (bf16 products are exact in f32: only the order of the f32 sums
+    differs, tol 1e-4) and timed with the device time of each level, beside
+    the whole-slab product that the Pallas kernel computes (``torch.bmm``
+    of level-0 f2 with f1^T; the port never calls it). Then the f32
+    instantiation (B = 2, tol 1e-5) timed apart, a ragged case (B = 3,
+    15 x 19: N = 285, f32 and bf16, far-off, huge, infinite and NaN
+    centres) and the one-level entry at level 2."""
+    import torch
+
+    from robust_pose_tpu_torch.ops import corr_onthefly as K1
+
     saved = K1.launches
-    t = measure(kernel)
-    plain_ms = cuda_time_ms(plain, reps=3, warmup=1)
+    one_launch = hasattr(K1, "onthefly_lookup_pyramid")
+    rows = {}
+    worst = 0.0
+    for what, b, centres in (("noisy", 2 * T_WINDOW, "noisy"),
+                             ("smooth", 2 * T_WINDOW, "smooth"),
+                             ("smooth_b1", 1, "smooth"),
+                             ("smooth_b8", T_WINDOW, "smooth")):
+        f1, levels, coords = corr_inputs(dev, b, centres, torch.bfloat16)
+        tol = 1e-4    # f32 sums of 256 exact bf16 products, in other orders
+        err = corr_check(f1, levels, coords, tol, what)
+        worst = max(worst, err)
+        kernel, plain, level = corr_entries(f1, levels, coords)
+        t = measure(kernel)
+        if one_launch:
+            require(t["device_launches"] == 1,
+                    f"corr {what}: {t['device_launches']} device launches a call")
+        bound, by, nbytes, ops = corr_bound(f1, levels, coords)
+        f1f = f1.reshape(b, -1, 256)
+        f2f = levels[0].reshape(b, -1, 256)
+        slab = lambda: torch.bmm(f2f, f1f.transpose(1, 2))
+        rows[what] = {
+            "batch": b, "centres": centres, **t,
+            "plain_ms": cuda_time_ms(plain, reps=3, warmup=1),
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "level_device_ms": device_times_ms(
+                [lambda l=l: level(l) for l in range(len(levels))]),
+            "slab_matmul_ms": cuda_time_ms(slab, reps=10),
+            "max_abs_err": err, "tol": tol, "bytes": nbytes, "ops": ops}
+        del f1, levels, coords, kernel, plain, level, f1f, f2f, slab
+        torch.cuda.empty_cache()
+    # f32: exact FMAs on the CUDA cores (the card-vs-CPU phases' dtype)
+    f1, levels, coords = corr_inputs(dev, 2, "smooth", torch.float32)
+    err32 = corr_check(f1, levels, coords, 1e-5, "f32")
+    kernel, plain, _ = corr_entries(f1, levels, coords)
+    bound, by, nbytes, ops = corr_bound(f1, levels, coords)
+    f32_row = {"batch": 2, "centres": "smooth", **measure(kernel),
+               "plain_ms": cuda_time_ms(plain, reps=3, warmup=1),
+               "bound_ms": bound, "bound_by": by, "max_abs_err": err32,
+               "tol": 1e-5}
+    # the one-level entry at level 2 (its queries in one row of tiles)
+    f1, levels, coords = corr_inputs(dev, 2 * T_WINDOW, "smooth", torch.bfloat16)
+    b = f1.shape[0]
+    f1f, cs = f1.reshape(b, -1, 256), coords.reshape(b, -1, 2)
+    lvl2 = lookup_err([K1.corr_lookup_level(f1f, levels[2], cs, 4, 4.0)],
+                      [K1.corr_lookup_level_plain(f1f, levels[2], cs, 4, 4.0)],
+                      "corr level 2")
+    require(lvl2 <= 1e-4, f"corr level 2: max |err| {lvl2} > 1e-4")
+    ragged = {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-4)):
+        f1, levels, coords = corr_inputs(dev, 3, "ragged", dtype, 15, 19, seed=8)
+        ref = corr_entries(f1, levels, coords)[1]()
+        require(all(bool(torch.isnan(r).any()) for r in ref)
+                and tuple(ref[-1].shape) == (3, 81, 285),
+                "corr ragged: the NaN centres were lost")
+        ragged[str(dtype).split(".")[-1]] = corr_check(f1, levels, coords, tol,
+                                                       f"ragged {dtype}")
+    del f1, levels, coords, f1f, cs, kernel, plain
+    torch.cuda.empty_cache()
     K1.launches = saved
-    # bytes: f1, the 4 f2 levels and coords read once, 4 outputs written once
-    nbytes = (f1.numel() * 2 + sum(l.numel() * 2 for l in levels)
-              + coords.numel() * 4 + 4 * b * 81 * h8 * w8 * 4)
-    # operations: one C-long multiply-add per in-bounds window pixel (the
-    # 10x10 pixels a radius-4 bilinear window touches), bf16 inputs
-    ops = 0
-    for l, s in zip(levels, scales):
-        hl, wl = l.shape[1:3]
-        cy0 = torch.floor(coords[..., 1] / s) - 4
-        cx0 = torch.floor(coords[..., 0] / s) - 4
-        dd = torch.arange(10, device=dev)
-        ny = ((cy0[..., None] + dd >= 0) & (cy0[..., None] + dd < hl)).sum(-1)
-        nx = ((cx0[..., None] + dd >= 0) & (cx0[..., None] + dd < wl)).sum(-1)
-        ops += int((ny * nx).sum()) * c * 2
-    bound = max(nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS) * 1e3
+    worst = max(worst, err32, lvl2, *ragged.values())
+    n_launch = "1 launch" if one_launch else "4 launches"
     return {"name": "corr_window_lookup", "route": "cuda",
             "source": "robust_pose_tpu_torch/csrc/corr_onthefly.cu",
             "replaces": "robust_pose_tpu/ops/pallas_corr_onthefly.py:64",
-            "max_abs_err": err, "tol": tol, **t, "plain_ms": plain_ms,
-            "bound_ms": bound,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_FLOPS
-            else "operations",
-            "library_ms": None, "unit": "one 4-level lookup (4 launches)",
-            "bytes": nbytes, "ops": ops}
+            "max_abs_err": worst, "tol": {"bf16": 1e-4, "f32": 1e-5},
+            **{k: rows["noisy"][k] for k in (
+                "ms", "device_ms", "host_us", "device_launches", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "bytes", "ops")},
+            "unit": f"one 4-level lookup at B = 16 ({n_launch})",
+            "per_input": rows, "f32": f32_row, "level2_err": lvl2,
+            "err_ragged": ragged}
 
 
 def kernel_instance_norm(dev):
@@ -456,16 +623,7 @@ def lanewise_inputs(dev, centres="noisy"):
                             torch.arange(w8, device=dev, dtype=torch.float32),
                             indexing="ij")
     noise = 4.0 * torch.randn(b, h8 * w8, 2, generator=g, device=dev)
-    if centres == "smooth":
-        ph = torch.arange(b, device=dev, dtype=torch.float32)[:, None, None]
-        tau = 2.0 * np.pi
-        fx = (-1.5 + 0.01 * (xs - w8 / 2)
-              + 2.0 * torch.sin(tau * (xs / 48.0 + ys / 64.0) + ph))
-        fy = (0.4 + 0.008 * (ys - h8 / 2)
-              + 1.5 * torch.cos(tau * (xs / 64.0 - ys / 40.0) + 0.5 * ph))
-        flow = torch.stack([fx, fy], -1).reshape(b, -1, 2)
-    else:
-        flow = noise
+    flow = smooth_flow(b, xs, ys).reshape(b, -1, 2) if centres == "smooth" else noise
     coords = torch.stack([xs, ys], -1).reshape(1, -1, 2) + flow
     coords[:, :200] -= 40.0
     grads = [torch.randn(b, 81, h8 * w8, generator=g, device=dev)
@@ -675,10 +833,12 @@ def kernel_lanewise(dev):
             require(t4["device_launches"] == 1 and t5["device_launches"] == 1,
                     f"lanewise: {t4['device_launches']} and "
                     f"{t5['device_launches']} device operations a call")
-        levels4 = [device_time_ms(lambda: L.lanewise_fwd(v, coords, 4, 2.0 ** l))[0]
-                   for l, v in enumerate(pyramid)]
-        levels5 = [device_time_ms(lambda: L.lanewise_bwd(v, coords, g, 4, 2.0 ** l))[0]
-                   for l, (v, g) in enumerate(zip(pyramid, grads))]
+        levels4 = device_times_ms(
+            [lambda l=l, v=v: L.lanewise_fwd(v, coords, 4, 2.0 ** l)
+             for l, v in enumerate(pyramid)])
+        levels5 = device_times_ms(
+            [lambda l=l, v=v, g=g: L.lanewise_bwd(v, coords, g, 4, 2.0 ** l)
+             for l, (v, g) in enumerate(zip(pyramid, grads))])
         plain4 = cuda_time_ms(fwd_plain, reps=3, warmup=1)
         plain5 = cuda_time_ms(bwd_plain, reps=3, warmup=1)
         vols, grids, lib = grid_sample_yardstick(
@@ -960,7 +1120,8 @@ def phase_slice(dev):
 
     h, w = 64, 96
     model_cfg = {"image_shape": (h, w), "iters": 2, "lbgfs_iters": 5,
-                 "use_weights": True, "mixed_precision": False, "unet_levels": 1}
+                 "use_weights": True, "mixed_precision": False, "unet_levels": 1,
+                 "lookup": "onthefly"}       # K1 on the card, its plain version here
     slam = {"frame2frame": True, "lbgfs_iters": 5, "conf_weighing": True,
             "depth_clipping": [1, 250]}
     K = np.array([[100.0, 0, w / 2], [0, 100.0, h / 2], [0, 0, 1.0]])
@@ -972,6 +1133,7 @@ def phase_slice(dev):
         est = PoseEstimator(slam, K, 250.0, {"state_dict": sd,
                                             "config": {"model": model_cfg}},
                             (w, h), device=where if where == "cpu" else dev)
+        zero_launch_counts()
         est(ls[0], rs[0], mask)
         first_mask = est.frame.depth.cpu() < 249.999
         poses, succ = [], []
@@ -983,7 +1145,8 @@ def phase_slice(dev):
         res[where] = {"poses": torch.cat(poses), "succ": torch.cat(succ),
                       "first_valid": first_mask,
                       "carry_valid": est.frame.depth.cpu() < 249.999,
-                      "niter": est.last_solver_iters.cpu()}
+                      "niter": est.last_solver_iters.cpu(),
+                      "k1": launch_counts()["corr_window_lookup"]}
     c, p = res["cuda"], res["cpu"]
     dist = tangent_distance(c["poses"], p["poses"])
     require(bool(p["succ"].any()), "slice: degenerate sequence, every frame failed")
@@ -992,7 +1155,9 @@ def phase_slice(dev):
             and torch.equal(c["carry_valid"], p["carry_valid"]),
             "slice: depth-valid masks differ")
     require(dist <= 1e-4, f"slice: pose tangent distance {dist} > 1e-4")
+    require(c["k1"] > 0 and p["k1"] == 0, f"slice: K1 launches {c['k1']}, {p['k1']}")
     emit({"phase": "slice", "shape": [h, w], "pose_tangent_dist": dist,
+          "k1_launches_cuda": c["k1"],
           "tol": 1e-4, "success": c["succ"].tolist(),
           "niter_cuda": c["niter"].tolist(), "niter_cpu": p["niter"].tolist(),
           "valid_fraction": float(c["first_valid"].float().mean())})
@@ -1073,7 +1238,7 @@ def phase_main(dev, smi):
                 "instance_norm_stats": K2.launches, "normal_eq": K3.launches}
 
     require(bool(torch.isfinite(poses).all()), "main: non-finite poses")
-    require(launches["corr_window_lookup"] == 48 * n_timed,
+    require(launches["corr_window_lookup"] == 12 * n_timed,
             f"main: corr lookups {launches}")
     require(launches["instance_norm_stats"] == 15 * n_timed,
             f"main: instance norms {launches}")
@@ -1202,12 +1367,22 @@ def profile_run(run, span_prefix):
             "group_ms": groups, "top_kernels_ms": _top(by_name, 12)}
 
 
+def k1_in_window(prof, earlier=None):
+    """K1's device ms in a profiled window or step (its kernel group),
+    beside the figure on record before its redesign where there is one."""
+    return {"ms": prof.get("group_ms", {}).get("corr_window_lookup (K1)"),
+            "earlier": earlier}
+
+
 def phase_profile(est, window, masks):
     """One more main-path window under torch.profiler, by stage of
     PoseNet.infer_window."""
-    emit({"phase": "profile", "window": T_WINDOW,
-          **profile_run(lambda: est.track_window(window[0], window[1], masks),
-                        "infer_window.")})
+    prof = profile_run(lambda: est.track_window(window[0], window[1], masks),
+                       "infer_window.")
+    # before the redesign (48 launches a window): 43.91 ms of the flow
+    # span's 86.60 (NVIDIA H100 80GB HBM3, 700 W)
+    emit({"phase": "profile", "window": T_WINDOW, **prof,
+          "k1_in_window": k1_in_window(prof, {"flow_span_k1_ms": 43.91})})
 
 
 # ---------------------------------------------------------------------------
@@ -1462,7 +1637,7 @@ def phase_train(dev, smi):
         if name == "a":
             require(per_step["lanewise_lookup"] == 0
                     and per_step["lanewise_lookup_bwd"] == 0
-                    and per_step["corr_window_lookup"] == 4 * iters,
+                    and per_step["corr_window_lookup"] == iters,
                     f"train a: launches {launches}")
             require(not moved, f"train a: RAFT parameters moved: {moved[:3]}")
         else:
@@ -1498,6 +1673,8 @@ def phase_train(dev, smi):
                 "K5": prof["group_ms"].get("lanewise_lookup_bwd (K5)", 0.0),
                 "memsets": prof["group_ms"].get("memsets", 0.0),
                 "earlier": {"K4": 4.71, "K5": 9.44}}
+        if name == "a":
+            prof["k1_in_step"] = k1_in_window(prof)
         emit({"phase": "train_profile", "config": name, **prof})
         del tr, st, flow0
         torch.cuda.empty_cache()
@@ -1509,22 +1686,121 @@ def phase_train(dev, smi):
 # ---------------------------------------------------------------------------
 
 F2M_POOL_FRAMES = 4           # pool pre-sized to 4 frames, as bench.py does
-F2M_WINDOW_K1 = (48, 48)      # K1 launches: precompute (4 levels x 12
-                              # iterations at batch T), then per frame
+F2M_WINDOW_K1 = (12, 12)      # K1 launches: one a 4-level lookup, 12
+                              # iterations, precompute (batch T) and frame
 F2M_WINDOW_K7 = (12, 12)      # K7 (lookup "grouped"): one launch a 4-level
                               # lookup, 12 iterations, precompute and frame
 F2M_WINDOW_K2 = (15, 15)      # K2: one fnet pass in the precompute, one a frame
 
 
+def f2m_pool_case(dev, model_cfg, sd, K, ls, rs, mask):
+    """The pool's overflow redo, ``average_pts`` and ``upscale`` on the
+    card: f2m at 64x96 in f32 with ``dist_thr`` 0.05, ``average_pts`` on,
+    surfel ``upscale`` 2 and the default bucket of 2 frames in a pool of 8,
+    the first frame and one window of 4 frames (nearly every frame appends,
+    so the window overflows its bucket and is re-run from its carries at a
+    grown one), on the card (K1) and on the CPU (plain versions). Success
+    flags, the re-run count, the pool's counters, bucket, ``active`` and
+    ``t_created``, the winner slots of every rendering that reaches an
+    output (the window's first reference and each frame's in the run that
+    is kept) and the carried model-frame mask equal bit for bit; poses
+    within 1e-4. The renderings of the runs that the overflow discards may
+    differ at a pixel boundary (<= 0.5 % of the pixels, the phase's mask
+    tolerance; printed)."""
+    import torch
+
+    from robust_pose_tpu_torch.slam import surfel_map as SM
+    from robust_pose_tpu_torch.slam.pose_estimator import PoseEstimator
+
+    h, w = model_cfg["image_shape"]
+    slam = {"frame2frame": False, "lbgfs_iters": 5, "conf_weighing": True,
+            "depth_clipping": [1, 250], "dist_thr": 0.05, "average_pts": True,
+            "upscale": 2, "map_capacity": 8 * h * w}
+    t = 4
+    winner_frame = SM._winner_frame
+    res = {}
+    for where in ("cuda", "cpu"):
+        slots = []
+
+        def spy(state, slot_img, *a):
+            slots.append(slot_img.cpu())
+            return winner_frame(state, slot_img, *a)
+
+        est = PoseEstimator(slam, K, 250.0, {"state_dict": sd,
+                                            "config": {"model": model_cfg}},
+                            (w, h), device=dev if where == "cuda" else "cpu")
+        est(ls[0], rs[0], mask)
+        bucket0 = est.scene.cfg.capacity
+        steps = [0]
+        step = est._f2m_step
+
+        def counted(*a):
+            steps[0] += 1
+            return step(*a)
+
+        est._f2m_step = counted
+        SM._winner_frame = spy
+        try:
+            zero_launch_counts()
+            p, s = est.track_window(ls[1:1 + t], rs[1:1 + t], np.stack([mask] * t))
+            launches = launch_counts()
+        finally:
+            SM._winner_frame = winner_frame
+        st = est.scene.state
+        res[where] = {"poses": p.cpu(), "succ": s.cpu(), "slots": slots,
+                      "reruns": steps[0] // t - 1, "rest": steps[0] % t,
+                      "counters": [est.scene.n_active, int(st.hi),
+                                   int(st.n_dropped), bucket0,
+                                   est.scene.cfg.capacity],
+                      "active": st.active.cpu(), "t_created": st.t_created.cpu(),
+                      "mask": est._model_frame.mask.cpu(), "launches": launches}
+        del est
+    c, p = res["cuda"], res["cpu"]
+    dist = tangent_distance(c["poses"], p["poses"])
+    require(c["rest"] == 0 and p["rest"] == 0, "f2m_slice pool: partial frame loop")
+    require(bool(p["succ"].any()), "f2m_slice pool: every frame failed")
+    require(torch.equal(c["succ"], p["succ"]), "f2m_slice pool: success flags")
+    require(dist <= 1e-4, f"f2m_slice pool: pose tangent distance {dist}")
+    require(c["reruns"] == p["reruns"] and p["reruns"] >= 1,
+            f"f2m_slice pool: re-runs {c['reruns']} (card), {p['reruns']} (CPU)")
+    require(c["counters"] == p["counters"] and p["counters"][4] > p["counters"][3],
+            f"f2m_slice pool: counters {c['counters']} vs {p['counters']}")
+    require(torch.equal(c["active"], p["active"])
+            and torch.equal(c["t_created"], p["t_created"]),
+            "f2m_slice pool: active slots differ")
+    # renderings: the window's first reference, then one a frame in every
+    # run of the frame loop; the runs cut short by the overflow are
+    # discarded (their renderings reach no output), the last run's are kept
+    slot_diff = [int((a != b).sum()) for a, b in zip(c["slots"], p["slots"])]
+    require(len(c["slots"]) == len(p["slots"]) == 1 + t * (1 + c["reruns"]),
+            f"f2m_slice pool: {len(c['slots'])} and {len(p['slots'])} renderings")
+    kept = [slot_diff[0]] + slot_diff[-t:]
+    require(not any(kept) and max(slot_diff) <= 0.005 * h * w,
+            f"f2m_slice pool: winner slots differ at {slot_diff} pixels")
+    require(torch.equal(c["mask"], p["mask"]), "f2m_slice pool: model-frame mask")
+    lc = c["launches"]
+    # one launch a 4-level lookup: the precompute's GRU iterations, then
+    # each frame's, in every run of the frame loop
+    require(lc["corr_window_lookup"]
+            == model_cfg["iters"] * (1 + t * (1 + c["reruns"]))
+            and not any(p["launches"].values()), f"f2m_slice pool: launches {lc}")
+    return {"slam": slam, "window": t, "pose_tangent_dist": dist,
+            "success": c["succ"].tolist(), "window_loop_reruns": c["reruns"],
+            "n_active_hi_dropped_bucket0_bucket": c["counters"],
+            "renderings": len(c["slots"]), "winner_slot_flips": slot_diff,
+            "launches_cuda": lc}
+
+
 def phase_f2m_slice(dev):
     """f2m at 64x96 in f32, the same weights and frames on the card
-    (kernels) and on the CPU (plain versions), with the default lookup and
-    with ``grouped``: the first frame, one per-frame step, then one window of
-    3 frames. Success flags equal, pose tangent distance <= 1e-4, n_active
-    within 0.5 %, and the rendered model-frame masks (the step's reference,
-    the window's carried next reference) equal at >= 99.5 % of pixels: a
-    surfel whose projection sits on a pixel boundary can fall on either
-    side on the two devices (flips are printed)."""
+    (kernels) and on the CPU (plain versions), with ``lookup`` "onthefly"
+    (K1; "auto" would take "xla" on the CPU) and with ``grouped``: the
+    first frame, one per-frame step, then one window of 3 frames. Success
+    flags equal, pose tangent distance <= 1e-4, n_active within 0.5 %, and
+    the rendered model-frame masks (the step's reference, the window's
+    carried next reference) equal at >= 99.5 % of pixels: a surfel whose
+    projection sits on a pixel boundary can fall on either side on the two
+    devices (flips are printed). Then ``f2m_pool_case``."""
     import torch
 
     from robust_pose_tpu_torch.slam.pose_estimator import PoseEstimator
@@ -1540,7 +1816,7 @@ def phase_f2m_slice(dev):
     ls, rs = make_sequence(5, disparity=3, step=2, seed=5, h=h, w=w)
     mask = np.ones((1, h, w, 1), bool)
     report = {}
-    for lookup in ("auto", "grouped"):
+    for lookup in ("onthefly", "grouped"):
         res = {}
         for where in ("cuda", "cpu"):
             est = PoseEstimator(slam, K, 250.0, {
@@ -1577,8 +1853,11 @@ def phase_f2m_slice(dev):
         report[lookup] = {"pose_tangent_dist": dist, "success": c["succ"].tolist(),
                           "n_active_cuda": c["n_active"], "n_active_cpu": p["n_active"],
                           "mask_flips": flips, "launches_cuda": lc}
+    pool = f2m_pool_case(dev, dict(model_cfg, lookup="onthefly"), sd, K, ls, rs,
+                         mask)
     emit({"phase": "f2m_slice", "shape": [h, w], "tol": {
-        "pose": 1e-4, "n_active_rel": 0.005, "mask_agreement": 0.995}, **report})
+        "pose": 1e-4, "n_active_rel": 0.005, "mask_agreement": 0.995}, **report,
+        "pool_redo": pool})
 
 
 def f2m_slam():
@@ -1694,9 +1973,12 @@ def phase_f2m(dev, smi):
     del ests
     torch.cuda.empty_cache()
 
-    emit({"phase": "f2m_profile", "window": T_WINDOW,
-          **profile_run(lambda: est.track_window(windows[1][0], windows[1][1], masks),
-                        ("f2m_", "fuse_render"))})
+    prof = profile_run(lambda: est.track_window(windows[1][0], windows[1][1], masks),
+                       ("f2m_", "fuse_render"))
+    # before the redesign (432 launches a window): 52.3 ms of kernels
+    # (NVIDIA H100 80GB HBM3, 700 W)
+    emit({"phase": "f2m_profile", "window": T_WINDOW, **prof,
+          "k1_in_window": k1_in_window(prof, {"k1_ms": 52.3})})
     return launches, g_launches
 
 

@@ -9,9 +9,13 @@ free ``permute``.
 
 Correlation lookup (``lookup``), as in the JAX package:
 
-* ``"auto"`` / ``"onthefly"``: the on-the-fly window lookup
-  (``ops.corr_onthefly``, kernel K1) over f2 features mean-pooled in f32
-  and cast to the correlation dtype;
+* ``"auto"``: ``"onthefly"`` for features on a CUDA device, ``"xla"`` for
+  features on the CPU, decided at each call (the JAX package takes
+  ``"xla"`` on its CPU backend and ``"onthefly"`` on an accelerator);
+* ``"onthefly"``: the on-the-fly window lookup (``ops.corr_onthefly``,
+  kernel K1, one launch a 4-level lookup through
+  ``onthefly_lookup_pyramid``, one ``autograd.Function`` over the pyramid)
+  over f2 features mean-pooled in f32 and cast to the correlation dtype;
 * ``"lanewise"``: the transposed all-pairs volume and the lane-wise lookup
   (``ops.corr_lanewise``, kernels K4 forward and K5 backward);
 * ``"xla"``: the all-pairs volume and the one-hot product lookup
@@ -45,7 +49,7 @@ from robust_pose_tpu_torch.ops.corr_lanewise import (
     lanewise_lookup,
 )
 from robust_pose_tpu_torch.ops.corr_onthefly import (
-    onthefly_lookup,
+    onthefly_lookup_pyramid,
     pool_fmap_pyramid,
 )
 from robust_pose_tpu_torch.ops.corr_pixel import grouped_lookup_pyramid
@@ -337,8 +341,7 @@ class RAFT(nn.Module):
     def __init__(self, iters=12, dtype=torch.bfloat16, corr_dtype=torch.bfloat16,
                  lookup="auto", remat=False):
         super().__init__()
-        lookup = "onthefly" if lookup == "auto" else lookup
-        if lookup not in LOOKUPS:
+        if lookup != "auto" and lookup not in LOOKUPS:
             raise ValueError(f"unknown correlation lookup {lookup!r}; expected "
                              "one of 'auto', 'onthefly', 'lanewise', 'grouped', "
                              "'xla'")
@@ -372,21 +375,29 @@ class RAFT(nn.Module):
         c = nhwc(self._run(self.cnet, self._prep(images)))
         return torch.tanh(c[..., :HDIM]), F.relu(c[..., HDIM:])
 
+    def _route(self, t: Tensor) -> str:
+        """The lookup that runs for features on ``t``'s device."""
+        if self.lookup == "auto":
+            return "onthefly" if t.device.type == "cuda" else "xla"
+        return self.lookup
+
     def _pyramid(self, fmap1, fmap2):
-        if self.lookup == "onthefly":
+        route = self._route(fmap1)
+        if route == "onthefly":
             return (fmap1.to(self.corr_dtype).contiguous(),
                     [l.to(self.corr_dtype)
                      for l in pool_fmap_pyramid(fmap2.float())])
-        build = build_corr_pyramid_t if self.lookup == "lanewise" else build_corr_pyramid
+        build = build_corr_pyramid_t if route == "lanewise" else build_corr_pyramid
         return build(fmap1.float(), fmap2.float(), dtype=self.corr_dtype)
 
     def _lookup(self, pyramid, coords1):
-        if self.lookup == "onthefly":
-            return onthefly_lookup(pyramid[0], pyramid[1], coords1,
-                                   radius=CORR_RADIUS)
-        if self.lookup == "lanewise":
+        route = self._route(coords1)
+        if route == "onthefly":
+            return onthefly_lookup_pyramid(pyramid[0], pyramid[1], coords1,
+                                           radius=CORR_RADIUS)
+        if route == "lanewise":
             return lanewise_lookup(pyramid, coords1, radius=CORR_RADIUS)
-        if self.lookup == "grouped":
+        if route == "grouped":
             return grouped_lookup_pyramid(pyramid, coords1)
         return lookup_corr(pyramid, coords1)
 

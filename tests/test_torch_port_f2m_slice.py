@@ -72,8 +72,15 @@ def runs(weights):
     out = {}
     with jax.default_matmul_precision("float32"):
         for name in ("jax", "port", "port_grouped"):
-            ckpt_cfg = {"model": dict(MODEL_CFG, lookup="grouped")
-                        if name == "port_grouped" else MODEL_CFG}
+            # the port's "port" run names the on-the-fly lookup (K1's plain
+            # version), the formulation this test has held against the JAX
+            # estimator's default since the f2m slice was ported: with the
+            # "xla" route, which "auto" now takes on the CPU in both
+            # packages, the window's map is the same but for one surfel
+            # match that f32 rounding flips at two threads (the live
+            # confidences' sum then moves by 3.3e-5)
+            ckpt_cfg = {"model": dict(MODEL_CFG, lookup={
+                "jax": "auto", "port": "onthefly", "port_grouped": "grouped"}[name])}
 
             def make():
                 if name == "jax":

@@ -46,9 +46,10 @@ def test_raft_encoders_match_jax(rafts, method):
 
 
 def test_raft_flow_from_features_matches_jax(rafts):
-    """iters = 2; the JAX side looks up a materialized pyramid (its CPU
-    path), the port pools features (its kernel's formulation). Flow atol
-    1e-3 px, hidden state and context atol 1e-4."""
+    """iters = 2; both sides leave ``lookup`` at "auto" and so look up a
+    materialized pyramid (the "xla" route, what "auto" takes on the CPU in
+    both packages). Flow atol 1e-3 px, hidden state and context atol
+    1e-4."""
     port, jmodel, v = rafts
     rng = np.random.default_rng(1)
     f1, f2 = (rng.normal(size=(2, H // 8, W // 8, 256)).astype(np.float32)

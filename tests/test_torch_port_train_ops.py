@@ -164,10 +164,10 @@ def test_onthefly_backward_matches_jax_vjp(monkeypatch):
     cotangent's scale (f32 sums over the level slab in other orders). The
     forward is made to return a tensor without autograd history, as the
     kernel's launch does on the card, so the gradient must come from the
-    lookup's own backward."""
-    plain = corr_onthefly.corr_lookup_level_plain
-    monkeypatch.setattr(corr_onthefly, "corr_lookup_level",
-                        lambda *a: plain(*a).detach())
+    lookup's own backward (the pyramid ``autograd.Function``'s)."""
+    forward = corr_onthefly.pyramid_forward
+    monkeypatch.setattr(corr_onthefly, "pyramid_forward",
+                        lambda *a: forward(*a).detach())
     rng = np.random.default_rng(6)
     b, h8, w8, c = 2, 10, 12, 8
     f1 = rng.normal(size=(b, h8, w8, c)).astype(np.float32)
