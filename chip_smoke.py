@@ -26,7 +26,19 @@ Phases, each printing one JSON line:
                   version's time, the time of one PyTorch library call
                   computing the same function where one exists, and the
                   least time the card could take (bytes over 3.35 TB/s or
-                  operations over the peak rate of their type).
+                  operations over the peak rate of their type). K3's entry
+                  also holds the LM solve kernel (one launch a solve): its
+                  per-sample update bit for bit against the plain
+                  version's arithmetic (lm_propose with solve6_lu,
+                  se3.normalize/log) on 4,096 random proposals, then
+                  solves from the identity at B = 8 (20 iterations), B = 1
+                  (100) and B = 8 noise-free (100, every sample done early):
+                  the same bits twice; iteration counts, done and failure
+                  flags equal to the plain loop with K3 builds and the
+                  kernel's LU on the card, pose within 1e-5 (and its bits);
+                  within 1e-4 of the f64 plain loop; the loop of the CPU
+                  path with K3 builds (cuBLAS's solve: the yardstick the
+                  kernel replaces) timed beside it, its counts printed.
 3. slice       -- the port's f2f path at 64x96 in f32 with TF32 off, once on
                   the card through the kernels and once on the CPU through
                   the plain versions (lookup "onthefly" on both: "auto"
@@ -38,7 +50,11 @@ Phases, each printing one JSON line:
                   synthetic sequence of bench.py: first frame, 2 warm-up and
                   4 timed windows with every launch counter set to 0 just
                   before and read just after; then a bf16-vs-f32 pose check.
-5. profile     -- one more main-path window under torch.profiler.
+                  Every phase that drives a path holds the LM solve kernel
+                  to exactly one launch a solve_pose call, and no K3 build
+                  launched from Python.
+5. profile     -- one more main-path window under torch.profiler (the
+                  solve span: at most 40 launches a solve).
 6. train_slice -- one PoseNetTrainer step with live RAFT gradients through
                   the lane-wise lookup at 64x96 in f32, on the card (kernels)
                   and on the CPU (plain versions), from the same weights and
@@ -519,9 +535,12 @@ def kernel_instance_norm(dev):
             "bytes": tot["bytes"], "ops": tot["ops"], "per_shape": per}
 
 
-def kernel_normal_eq(dev):
-    """K3 at B = T = 8, 512x640, f32, at a random pose with random weights
-    and masks; also checks that two runs give the same bits."""
+def solver_inputs(dev, b=T_WINDOW, noise=True, seed=3):
+    """Seeded LM problems at 512x640: a random depth map's cloud, the flow
+    and 3D targets of a random small pose (with 0.3 px of flow noise and
+    0.01 of point noise unless ``noise`` is False), random weights and
+    masks. Returns (planes, kvec, loss_weight) of ``pack_planes`` and the
+    generator, for more draws."""
     import torch
 
     from robust_pose_tpu_torch import se3
@@ -529,8 +548,7 @@ def kernel_normal_eq(dev):
     from robust_pose_tpu_torch.ops.geometry import create_img_coords, depth_to_pcl
     from robust_pose_tpu_torch.solver.objectives import PoseProblemInputs
 
-    g = torch.Generator(device=dev).manual_seed(3)
-    b = T_WINDOW
+    g = torch.Generator(device=dev).manual_seed(seed)
     r = lambda *s: torch.rand(*s, generator=g, device=dev)
     K = torch.tensor([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]],
                      device=dev).expand(b, 3, 3)
@@ -540,17 +558,30 @@ def kernel_normal_eq(dev):
     pp = se3.act(pose_gt[:, None], pcl1.reshape(b, -1, 3))
     proj = pp @ K.transpose(1, 2)
     flow = proj[..., :2] / proj[..., 2:] - coords[None, :, :2]
+    sf, sp = (0.3, 0.01) if noise else (0.0, 0.0)
     xs = PoseProblemInputs(
-        flow=(flow + 0.3 * torch.randn(flow.shape, generator=g, device=dev)
+        flow=(flow + sf * torch.randn(flow.shape, generator=g, device=dev)
               ).reshape(b, H, W, 2),
-        pcl1=pcl1, pcl2=(pp + 0.01 * torch.randn(pp.shape, generator=g,
-                                                 device=dev)).reshape(b, H, W, 3),
+        pcl1=pcl1, pcl2=(pp + sp * torch.randn(pp.shape, generator=g,
+                                               device=dev)).reshape(b, H, W, 3),
         weights1=r(b, H, W, 1), weights2=r(b, H, W, 1),
         mask1=r(b, H, W, 1) > 0.1, mask2=r(b, H, W, 1) > 0.2, intrinsics=K,
         loss_weight=torch.tensor([[0.5, 1.5]], device=dev).expand(b, 2))
     planes, kvec = K3.pack_planes(xs, H, W)
+    return planes, kvec, xs.loss_weight.contiguous(), g
+
+
+def kernel_normal_eq(dev):
+    """K3 at B = T = 8, 512x640, f32, at a random pose with random weights
+    and masks; also checks that two runs give the same bits."""
+    import torch
+
+    from robust_pose_tpu_torch import se3
+    from robust_pose_tpu_torch.ops import normal_eq as K3
+
+    b = T_WINDOW
+    planes, kvec, lw, g = solver_inputs(dev, b)
     pose = se3.exp(0.01 * torch.randn(b, 6, generator=g, device=dev))
-    lw = xs.loss_weight.contiguous()
     Hk, gk, ck = K3.normal_equations(pose, planes, kvec, lw, H, W)
     Hk2, gk2, ck2 = K3.normal_equations(pose, planes, kvec, lw, H, W)
     require(torch.equal(Hk, Hk2) and torch.equal(gk, gk2) and torch.equal(ck, ck2),
@@ -597,8 +628,152 @@ def kernel_normal_eq(dev):
             **t, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOPS
             else "operations",
-            "library_ms": None, "unit": "one H/g/cost build (1 launch)",
+            "library_ms": None, "unit": "one H/g/cost build (2 kernels); "
+            "launches on the path: LM solves (lm_solve, every build inside)",
             "bytes": nbytes, "ops": ops}
+
+
+def propose_inputs(dev, n=4096, seed=13):
+    """LM proposals to hold the solve kernel's update to its plain version:
+    SPD H over six orders of magnitude, steps from 1e-7 to 2 (both Taylor
+    branches of exp and large angles), damping from 1e-9 to 1e6, random
+    poses; the last rows a zero system (H = g = 0) and a NaN in H."""
+    import torch
+
+    from robust_pose_tpu_torch import se3
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    J = rn(n, 12, 6)
+    Hm = (J.transpose(1, 2) @ J) * 10.0 ** (12 * torch.rand(n, 1, 1, generator=g,
+                                                             device=dev) - 6)
+    step = rn(n, 6) * 10.0 ** (-7 + 7.3 * torch.rand(n, 1, generator=g, device=dev))
+    gv = -(Hm @ step[..., None])[..., 0]
+    lam = 10.0 ** (15 * torch.rand(n, generator=g, device=dev) - 9)
+    pose = se3.exp(0.3 * rn(n, 6))
+    Hm[-2], gv[-2] = 0.0, 0.0
+    Hm[-1, 2, 3] = float("nan")
+    return Hm.contiguous(), gv.contiguous(), lam.contiguous(), pose.contiguous()
+
+
+def bits_equal(a, b):
+    """Bit for bit, NaNs included."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def solve_case(dev, name, planes, kvec, lw, cfg):
+    """One LM solve case for kernel_lm_solve: the kernel twice (the same
+    bits), against the plain loop with K3 builds and the kernel's LU on the
+    card (counts, flags and pose bits), the plain loop of the port's
+    CPU path with K3 builds (cuBLAS's solve: the yardstick this kernel
+    replaces, counts printed) and the f64 plain loop; times and bound."""
+    import torch
+
+    from robust_pose_tpu_torch.ops import normal_eq as K3
+
+    b = planes.shape[0]
+    saved = (K3.launches, K3.solve_launches)
+    kern = lambda: K3.lm_solve(planes, kvec, lw, H, W, cfg, flags=True)
+    k1, k2 = kern(), kern()
+    require(all(bits_equal(x.float(), y.float()) for x, y in zip(k1, k2)),
+            f"lm_solve {name}: two runs differ")
+    loop = lambda solve: K3.lm_solve_plain(planes, kvec, lw, H, W, cfg,
+                                           build=K3.normal_equations,
+                                           solve=solve, flags=True)
+    yl, ye = loop(K3.solve6_lu), loop(K3.solve6)
+    yd = K3.lm_solve_plain(planes.double(), kvec.double(), lw.double(), H, W,
+                           cfg, flags=True)
+    dist = lambda a, c: tangent_distance(a.cpu(), c.cpu(), scale=1.0)
+    pose, niter, done, failed = (x.cpu() for x in k1)
+    res = {"b": b, "iters": cfg.iters, "niter": niter.tolist(),
+           "done": done.tolist(), "failed": failed.tolist(),
+           "niter_k3_loop_lu": yl[1].tolist(),
+           "niter_k3_loop_solve_ex": ye[1].tolist(), "niter_f64": yd[1].tolist(),
+           "pose_bits_equal_k3_loop_lu": bits_equal(k1[0], yl[0].contiguous()),
+           "pose_dist_k3_loop_lu": dist(k1[0], yl[0]),
+           "pose_dist_k3_loop_solve_ex": dist(k1[0], ye[0]),
+           "pose_dist_f64": dist(k1[0], yd[0]),
+           "samples_niter_differ_solve_ex": int((ye[1].cpu() != niter).sum())}
+    require(torch.equal(niter, yl[1].cpu()) and torch.equal(done, yl[2].cpu())
+            and torch.equal(failed, yl[3].cpu()),
+            f"lm_solve {name}: counts or flags differ from the K3 loop {res}")
+    require(res["pose_dist_k3_loop_lu"] <= 1e-5, f"lm_solve {name}: {res}")
+    require(res["pose_dist_f64"] <= 1e-4, f"lm_solve {name}: vs f64 {res}")
+    run = lambda: K3.lm_solve(planes, kvec, lw, H, W, cfg)
+    t = measure(run, reps=10, warmup=2)
+    builds = int((1 + niter).sum())
+    # bytes: the 10 planes each build reads (the first and one an
+    # iteration of each sample until it is done), read once a build
+    nbytes = builds * 10 * H * W * 4
+    ops = builds * H * W * 260
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
+    res.update(t)
+    ident = torch.zeros((b, 7), device=dev)
+    ident[:, 6] = 1.0
+    build_ms, _ = device_time_ms(
+        lambda: K3.normal_equations(ident, planes, kvec, lw, H, W))
+    res.update({
+        "builds": builds, "rounds": 1 + int(niter.max()),
+        # one K3 build of all B samples alone (2 kernels): the rest of a
+        # round is barriers and the per-sample update
+        "build_device_ms": build_ms,
+        "ms_per_iteration": t["device_ms"] / (1 + int(niter.max())),
+        "bound_ms": bound, "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+        >= ops / F32_FLOPS else "operations",
+        # the planes read from device memory once, every later build from
+        # on-chip memory (possible at B = 1: 13.1 MB)
+        "bound_ms_planes_once": max(b * 10 * H * W * 4 / HBM_BYTES_PER_S,
+                                    ops / F32_FLOPS) * 1e3,
+        "k3_loop_ms": cuda_time_ms(lambda: loop(K3.solve6), reps=3, warmup=1),
+        "k3_loop_device_ms_launches": device_time_ms(lambda: loop(K3.solve6),
+                                                     reps=2)})
+    K3.launches, K3.solve_launches = saved
+    return res
+
+
+def kernel_lm_solve(dev):
+    """The LM solve kernel (K3 redesigned: one launch a solve): its update
+    bit for bit against ``lm_propose`` with the kernel's LU on random
+    proposals, then three solves from the identity at 512x640 -- B = 8 with
+    20 iterations (an f2f window, K3's inputs), B = 1 with 100 (an f2m
+    frame), and B = 8 noise-free with 100 (every sample done well before
+    the cap: the device stops early)."""
+    import torch
+
+    from robust_pose_tpu_torch.ops import normal_eq as K3
+    from robust_pose_tpu_torch.solver.gauss_newton import SolverConfig
+
+    from robust_pose_tpu_torch import se3
+
+    Hm, gv, lam, pose = propose_inputs(dev)
+    got = K3.lm_update_device(Hm, gv, lam, pose)
+    npose = se3.normalize(pose)
+    ref = K3.lm_propose(Hm, gv, lam, pose, solve=K3.solve6_lu)
+    ref = (*ref, torch.linalg.norm(ref[1], dim=-1), npose, se3.log(npose))
+    differ = lambda x, y: (x.contiguous().view(torch.int32)
+                           != y.contiguous().view(torch.int32)).reshape(len(x), -1).any(-1)
+    diff = int((differ(got[0], ref[0]) | differ(got[1], ref[1])
+                | differ(got[2], ref[2])).sum())
+    diff_finish = int((differ(got[3], ref[3]) | differ(got[4], ref[4])).sum())
+    require(diff == 0, f"lm_solve: {diff} of {len(Hm)} proposals differ from "
+                       "lm_propose(solve=solve6_lu) and torch.linalg.norm")
+    err_finish = max(float((got[3] - ref[3]).abs().max()),
+                     float((got[4] - ref[4]).abs().max()))
+    require(err_finish <= 1e-6, f"lm_solve: normalize/log off by {err_finish}")
+    planes, kvec, lw, _ = solver_inputs(dev)
+    cases = {"b8": solve_case(dev, "b8", planes, kvec, lw, SolverConfig(iters=20)),
+             "b1": solve_case(dev, "b1", planes[:1].contiguous(), kvec[:1],
+                              lw[:1], SolverConfig(iters=100))}
+    planes, kvec, lw, _ = solver_inputs(dev, noise=False, seed=4)
+    early = solve_case(dev, "early", planes, kvec, lw, SolverConfig(iters=100))
+    require(max(early["niter"]) < 50 and all(early["done"]),
+            f"lm_solve early: {early['niter']}")
+    cases["early"] = early
+    return {"proposals_checked": len(Hm), "proposals_differ": diff,
+            "finish_differ": diff_finish, "finish_max_abs_err": err_finish,
+            "cases": cases}
 
 
 def lanewise_inputs(dev, centres="noisy"):
@@ -1085,7 +1260,9 @@ def phase_kernels(dev):
     import torch
 
     t0 = time.perf_counter()
-    out = [kernel_corr(dev), kernel_instance_norm(dev), kernel_normal_eq(dev),
+    k3 = kernel_normal_eq(dev)
+    k3["solve"] = kernel_lm_solve(dev)
+    out = [kernel_corr(dev), kernel_instance_norm(dev), k3,
            *kernel_lanewise(dev), *kernel_pixel(dev)]
     torch.cuda.synchronize()
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
@@ -1207,9 +1384,6 @@ def phase_main(dev, smi):
     import torch
 
     from robust_pose_tpu_torch import se3
-    from robust_pose_tpu_torch.ops import corr_onthefly as K1
-    from robust_pose_tpu_torch.ops import instance_norm as K2
-    from robust_pose_tpu_torch.ops import normal_eq as K3
 
     est, sd = production_estimator(dev, True)
     ls, rs = make_sequence(1)
@@ -1226,7 +1400,7 @@ def phase_main(dev, smi):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    K1.launches = K2.launches = K3.launches = 0
+    zero_launch_counts()
     t0 = time.perf_counter()
     succs, poses = [], None
     for i in range(n_timed):
@@ -1234,16 +1408,17 @@ def phase_main(dev, smi):
         succs.append(succ)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"corr_window_lookup": K1.launches,
-                "instance_norm_stats": K2.launches, "normal_eq": K3.launches}
+    launches = {k: v for k, v in launch_counts().items() if k in (
+        "corr_window_lookup", "instance_norm_stats", "normal_eq", "lm_solve")}
 
     require(bool(torch.isfinite(poses).all()), "main: non-finite poses")
     require(launches["corr_window_lookup"] == 12 * n_timed,
             f"main: corr lookups {launches}")
     require(launches["instance_norm_stats"] == 15 * n_timed,
             f"main: instance norms {launches}")
-    require(2 * n_timed <= launches["normal_eq"] <= 21 * n_timed,
-            f"main: normal equations {launches}")
+    # one LM solve launch a window (every build inside it)
+    one_solve_a_call(launches, "main")
+    require(launches["lm_solve"] == n_timed, f"main: LM solves {launches}")
     succ = torch.cat(succs)
     it = est.last_solver_iters.cpu()
     fps = n_timed * T_WINDOW / dt
@@ -1351,13 +1526,15 @@ def profile_run(run, span_prefix):
     for i, (s0, e0, name) in enumerate(spans):
         s1 = spans[i + 1][0] if i + 1 < len(spans) else e0
         st = stages.setdefault(name, {"device_ms": 0.0, "kernel_ms": 0.0,
-                                      "launches": 0, "names": {}})
+                                      "launches": 0, "in_span_launches": 0,
+                                      "names": {}})
         st["device_ms"] += (s1 - s0) / 1e3
         for k in kernels:
             if s0 <= k.time_range.start < s1:
                 ms = k.time_range.elapsed_us() / 1e3
                 st["kernel_ms"] += ms
                 st["launches"] += 1
+                st["in_span_launches"] += k.time_range.start <= e0
                 st["names"][k.name] = st["names"].get(k.name, 0.0) + ms
     for st in stages.values():
         st["top"] = _top(st.pop("names"), 4)
@@ -1374,15 +1551,35 @@ def k1_in_window(prof, earlier=None):
             "earlier": earlier}
 
 
+def solve_span(prof, span, solves, earlier):
+    """The LM solve's span in a profiled run: its stage's device ms and
+    kernel ms (up to the next span: in f2m the estimator's per-frame code
+    after the solve counts too), and the launches a solve inside the span
+    itself (pack_planes, the solve kernel; at most 40), beside the figures
+    on record for the host-driven loop."""
+    st = prof.get("stages", {}).get(span)
+    if st is None:
+        return {"span": span, "device_time": "not measured"}
+    per = st["in_span_launches"] / solves
+    require(per <= 40, f"{span}: {per} launches a solve")
+    return {"span": span, "solves": solves, "device_ms": st["device_ms"],
+            "kernel_ms": st["kernel_ms"], "stage_launches": st["launches"],
+            "launches_per_solve": per, "earlier": earlier}
+
+
 def phase_profile(est, window, masks):
     """One more main-path window under torch.profiler, by stage of
     PoseNet.infer_window."""
     prof = profile_run(lambda: est.track_window(window[0], window[1], masks),
                        "infer_window.")
     # before the redesign (48 launches a window): 43.91 ms of the flow
-    # span's 86.60 (NVIDIA H100 80GB HBM3, 700 W)
+    # span's 86.60; before the one-launch LM solve the solve span held the
+    # card 81.0-109.0 ms for 7.3 ms of kernels, 3,075 launches a window
+    # (NVIDIA H100 80GB HBM3, 700 W)
     emit({"phase": "profile", "window": T_WINDOW, **prof,
-          "k1_in_window": k1_in_window(prof, {"flow_span_k1_ms": 43.91})})
+          "k1_in_window": k1_in_window(prof, {"flow_span_k1_ms": 43.91}),
+          "solve_span": solve_span(prof, "infer_window.solve", 1, {
+              "device_ms": [81.0, 109.0], "kernel_ms": 7.3, "launches": 3075})})
 
 
 # ---------------------------------------------------------------------------
@@ -1448,9 +1645,40 @@ def launch_counts():
     from robust_pose_tpu_torch.ops import normal_eq as K3
 
     return {"corr_window_lookup": K1.launches, "instance_norm_stats": K2.launches,
-            "normal_eq": K3.launches, "lanewise_lookup": L.launches,
+            "normal_eq": K3.launches, "lm_solve": K3.solve_launches,
+            "lanewise_lookup": L.launches,
             "lanewise_lookup_bwd": L.bwd_launches, "pixel_lookup": KP.launches,
             "grouped_lookup": KP.grouped_launches}
+
+
+SOLVE_CALLS = [0]             # solve_pose calls (count_solve_pose)
+
+
+def count_solve_pose():
+    """Count every ``solver.gauss_newton.solve_pose`` call (PoseNet's and
+    the pose layer's) in SOLVE_CALLS, so a phase can hold the solve
+    kernel to exactly one launch a call."""
+    from robust_pose_tpu_torch.models import posenet
+    from robust_pose_tpu_torch.solver import gauss_newton as GN
+
+    inner = GN.solve_pose
+    if getattr(inner, "counted", False):
+        return
+
+    def counted(*args, **kw):
+        SOLVE_CALLS[0] += 1
+        return inner(*args, **kw)
+
+    counted.counted = True
+    GN.solve_pose = posenet.solve_pose = counted
+
+
+def one_solve_a_call(lc, what):
+    """The solve kernel ran once for every solve_pose call since the
+    counters were zeroed, and no K3 build was launched from Python."""
+    require(lc["lm_solve"] == SOLVE_CALLS[0] > 0 and lc["normal_eq"] == 0,
+            f"{what}: {lc['lm_solve']} solve launches, {SOLVE_CALLS[0]} "
+            f"solve_pose calls, {lc['normal_eq']} K3 builds")
 
 
 def zero_launch_counts():
@@ -1460,9 +1688,10 @@ def zero_launch_counts():
     from robust_pose_tpu_torch.ops import instance_norm as K2
     from robust_pose_tpu_torch.ops import normal_eq as K3
 
-    K1.launches = K2.launches = K3.launches = 0
+    K1.launches = K2.launches = K3.launches = K3.solve_launches = 0
     L.launches = L.bwd_launches = 0
     KP.launches = KP.grouped_launches = 0
+    SOLVE_CALLS[0] = 0
 
 
 def phase_train_slice(dev):
@@ -1506,6 +1735,7 @@ def phase_train_slice(dev):
         res[where] = {"loss": float(m["train/loss_total"]),
                       "grad_norm": float(m["train/grad_norm"]),
                       "grads": seen[0], "launches": launch_counts(),
+                      "solves": SOLVE_CALLS[0],
                       "params": {k: v.detach().cpu() for k, v in st.params.items()}}
     c, p = res["cuda"], res["cpu"]
     require(abs(c["loss"] - p["loss"]) <= 1e-4 * abs(p["loss"]),
@@ -1537,7 +1767,8 @@ def phase_train_slice(dev):
             "train_slice: no RAFT gradient")
     lc = c["launches"]
     require(lc["lanewise_lookup"] > 0 and lc["lanewise_lookup_bwd"] > 0
-            and lc["instance_norm_stats"] > 0 and lc["normal_eq"] > 0
+            and lc["instance_norm_stats"] > 0 and lc["lm_solve"] == 1
+            and lc["normal_eq"] == 0 and c["solves"] == 1
             and lc["corr_window_lookup"] == 0, f"train_slice: launches {lc}")
     require(not any(p["launches"].values()), f"train_slice: CPU launches")
     emit({"phase": "train_slice", "shape": [h, w], "batch": b,
@@ -1632,7 +1863,8 @@ def phase_train(dev, smi):
         require(all(np.isfinite(loss)) and all(np.isfinite(gnorm)),
                 f"train {name}: loss {loss}, grad norm {gnorm}")
         require(min(gnorm) > 0, f"train {name}: zero gradient norm {gnorm}")
-        require(per_step["normal_eq"] >= 2 and per_step["instance_norm_stats"] > 0,
+        one_solve_a_call(launches, f"train {name}")
+        require(per_step["lm_solve"] == 1 and per_step["instance_norm_stats"] > 0,
                 f"train {name}: launches {launches}")
         if name == "a":
             require(per_step["lanewise_lookup"] == 0
@@ -1744,6 +1976,7 @@ def f2m_pool_case(dev, model_cfg, sd, K, ls, rs, mask):
             zero_launch_counts()
             p, s = est.track_window(ls[1:1 + t], rs[1:1 + t], np.stack([mask] * t))
             launches = launch_counts()
+            launches["solve_pose_calls"] = SOLVE_CALLS[0]
         finally:
             SM._winner_frame = winner_frame
         st = est.scene.state
@@ -1783,7 +2016,10 @@ def f2m_pool_case(dev, model_cfg, sd, K, ls, rs, mask):
     # each frame's, in every run of the frame loop
     require(lc["corr_window_lookup"]
             == model_cfg["iters"] * (1 + t * (1 + c["reruns"]))
-            and not any(p["launches"].values()), f"f2m_slice pool: launches {lc}")
+            and lc["lm_solve"] == lc["solve_pose_calls"] == t * (1 + c["reruns"])
+            and lc["normal_eq"] == 0
+            and not any(v for k, v in p["launches"].items()
+                        if k != "solve_pose_calls"), f"f2m_slice pool: launches {lc}")
     return {"slam": slam, "window": t, "pose_tangent_dist": dist,
             "success": c["succ"].tolist(), "window_loop_reruns": c["reruns"],
             "n_active_hi_dropped_bucket0_bucket": c["counters"],
@@ -1832,7 +2068,8 @@ def phase_f2m_slice(dev):
                           "succ": torch.cat([step[1], s.cpu()]),
                           "masks": [step[2], est._model_frame.mask.cpu()],
                           "n_active": est.scene.n_active,
-                          "launches": launch_counts()}
+                          "niter": est.last_solver_iters.cpu().tolist(),
+                          "launches": launch_counts(), "solves": SOLVE_CALLS[0]}
             del est
         c, p = res["cuda"], res["cpu"]
         dist = tangent_distance(c["poses"], p["poses"])
@@ -1847,12 +2084,14 @@ def phase_f2m_slice(dev):
         require(abs(c["n_active"] - p["n_active"]) <= 0.005 * p["n_active"],
                 f"f2m_slice {lookup}: n_active {c['n_active']} vs {p['n_active']}")
         require(agree >= 0.995, f"f2m_slice {lookup}: model-frame masks {flips}")
-        require(lc[lookup_k] > 0 and lc[other_k] == 0 and lc["normal_eq"] > 0
+        require(lc[lookup_k] > 0 and lc[other_k] == 0 and lc["normal_eq"] == 0
+                and lc["lm_solve"] == c["solves"] > 0
                 and lc["instance_norm_stats"] > 0, f"f2m_slice {lookup}: {lc}")
         require(not any(p["launches"].values()), f"f2m_slice {lookup}: CPU launches")
         report[lookup] = {"pose_tangent_dist": dist, "success": c["succ"].tolist(),
                           "n_active_cuda": c["n_active"], "n_active_cpu": p["n_active"],
-                          "mask_flips": flips, "launches_cuda": lc}
+                          "mask_flips": flips, "launches_cuda": lc,
+                          "niter_cuda": c["niter"], "niter_cpu": p["niter"]}
     pool = f2m_pool_case(dev, dict(model_cfg, lookup="onthefly"), sd, K, ls, rs,
                          mask)
     emit({"phase": "f2m_slice", "shape": [h, w], "tol": {
@@ -1925,7 +2164,8 @@ def phase_f2m(dev, smi):
     require(launches["instance_norm_stats"]
             == pre * N_TIMED + per * T_WINDOW * (N_TIMED + reruns),
             f"f2m: instance norms {launches}")
-    require(launches["normal_eq"] >= 2 * T_WINDOW * N_TIMED
+    one_solve_a_call(launches, "f2m")
+    require(launches["lm_solve"] == T_WINDOW * (N_TIMED + reruns)
             and not any(launches[k] for k in ("lanewise_lookup", "lanewise_lookup_bwd",
                                               "pixel_lookup", "grouped_lookup")),
             f"f2m: launches {launches}")
@@ -1959,7 +2199,9 @@ def phase_f2m(dev, smi):
     dt_g = time.perf_counter() - t0
     g_launches = launch_counts()
     g_reruns = f2m_reruns(g_launches, "grouped_lookup", 1, F2M_WINDOW_K7)
-    require(g_launches["corr_window_lookup"] == 0 and g_launches["pixel_lookup"] == 0,
+    one_solve_a_call(g_launches, "f2m grouped")
+    require(g_launches["corr_window_lookup"] == 0 and g_launches["pixel_lookup"] == 0
+            and g_launches["lm_solve"] == T_WINDOW * (1 + g_reruns),
             f"f2m grouped: launches {g_launches}")
     dist = tangent_distance(g_poses, ref_poses)
     # the two lookups read the same bf16 features through volumes pooled
@@ -1975,10 +2217,15 @@ def phase_f2m(dev, smi):
 
     prof = profile_run(lambda: est.track_window(windows[1][0], windows[1][1], masks),
                        ("f2m_", "fuse_render"))
-    # before the redesign (432 launches a window): 52.3 ms of kernels
-    # (NVIDIA H100 80GB HBM3, 700 W)
+    # before the redesign (432 launches a window): 52.3 ms of kernels;
+    # before the one-launch LM solve f2m_track.solve took 321.1-461.8 ms of
+    # device time for 18.3-18.6 ms of kernels, 12,884 launches over 8
+    # frames (NVIDIA H100 80GB HBM3, 700 W)
     emit({"phase": "f2m_profile", "window": T_WINDOW, **prof,
-          "k1_in_window": k1_in_window(prof, {"k1_ms": 52.3})})
+          "k1_in_window": k1_in_window(prof, {"k1_ms": 52.3}),
+          "solve_span": solve_span(prof, "f2m_track.solve", T_WINDOW, {
+              "device_ms": [321.1, 461.8], "kernel_ms": [18.3, 18.6],
+              "launches": 12884})})
     return launches, g_launches
 
 
@@ -1992,6 +2239,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     smi = phase_device()
+    count_solve_pose()
     if sys.argv[1:] == ["kernels"]:
         # the kernels phase alone, three times over (its spread), for work
         # on one kernel; prints no result line
@@ -2005,9 +2253,11 @@ def main():
     train = phase_train(dev, smi)
     phase_f2m_slice(dev)
     _, f2m_grouped = phase_f2m(dev, smi)
-    # each kernel's launches on its own path: K1-K3 in the f2f main path,
+    # each kernel's launches on its own path: K1-K3 in the f2f main path
+    # (K3: the LM solve kernel, one launch a window, every build inside),
     # K4-K5 in the training step with live RAFT, K7 in the f2m window with
     # lookup "grouped"; K6 has no path (none in the JAX package either)
+    launches["normal_eq"] = launches["lm_solve"]
     launches.update({k: train["b"][k] for k in ("lanewise_lookup",
                                                  "lanewise_lookup_bwd")})
     launches.update(pixel_lookup=0, grouped_lookup=f2m_grouped["grouped_lookup"])

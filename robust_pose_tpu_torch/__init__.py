@@ -4,8 +4,8 @@ Frame-to-frame streaming tracking (``slam.pose_estimator.PoseEstimator``)
 runs end to end: RAFT flow with a hand-written correlation-lookup kernel
 (``ops/corr_onthefly.py``, CUDA C++) and instance-norm statistics kernel
 (``ops/instance_norm.py``, Triton), TinyUNet confidence heads, and the
-Levenberg-Marquardt pose solve whose normal equations are a hand-written
-kernel (``ops/normal_eq.py``, CUDA C++).
+Levenberg-Marquardt pose solve, one hand-written kernel launch a solve
+with the normal-equation builds inside (``ops/normal_eq.py``, CUDA C++).
 
 Public functions keep the JAX package's NHWC / points-last layouts. Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``; on a CPU

@@ -10,8 +10,8 @@ tracks each frame against a rendering of the surfel map
 needs (at the inverse of the pose just solved) is made right after the
 fuse and carried, as in the JAX package. Where the JAX step chooses with
 ``lax.cond(success, fuse, identity)``, the port reads the success flag on
-the host and branches with ``if``: the LM solve already syncs once per
-iteration, so this adds one small copy a frame.
+the host and branches with ``if``. On the card this read is the f2m
+step's only host sync: the LM solve is one kernel launch with no sync.
 """
 from __future__ import annotations
 
