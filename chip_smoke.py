@@ -17,8 +17,10 @@ Phases, each printing one JSON line:
                   its precompute's 8; K4-K5: the training step at batch 8;
                   K1, K4, K5 at noisy and at smooth centres; K6-K7: the f2m
                   step at batch 1 and its precompute at 8; K1, K4-K7 one
-                  launch a 4-level lookup): max error vs the stated
-                  tolerance; the time of one call three ways, ms (CUDA
+                  launch a 4-level lookup; then RAFT small's K1, K4, K5 at
+                  radius 3, K1 on C = 128 at B = 16 and 1, and K2 at its
+                  widths 32/64/96, as rows of their own): max error vs the
+                  stated tolerance; the time of one call three ways, ms (CUDA
                   events around back-to-back calls: the larger of the
                   host's and the card's share), device_ms (torch.profiler:
                   the summed duration of the kernels the call launches)
@@ -85,6 +87,25 @@ Phases, each printing one JSON line:
                   frames.
 10. f2m_profile -- one more f2m window under torch.profiler, by span
                   (f2m_precompute, f2m_track.*, fuse_render).
+11. small_slice -- RAFT's small variant (radius-3 window, 7 x 7) at 64x96
+                  in f32, card against CPU: the f2f path of phase slice
+                  (lookup "onthefly": K1 at radius 3), then the training
+                  step of phase train_slice with RAFT small live through
+                  K4/K5 at radius 3, remat_policy "dots" and dropout 0.1,
+                  the CPU run replaying the card's dropout masks; the masks
+                  themselves checked on the card (per-channel, 1/(1-p),
+                  keep share).
+12. small      -- RAFT small at full width: f2f windows as phase main
+                  (success 1.0, bf16-vs-f32 gate) with its profile, then the
+                  training step (train.yaml, small, batch 8, RAFT live
+                  through K4/K5, remat, dropout 0.1) with remat_policy
+                  "dots" and "nothing", each timed and profiled
+                  (small_train, small_train_profile).
+13. checkpoints -- save_checkpoint / load_checkpoint_any: an estimator from
+                  the reloaded bundle gives the same poses, bit for bit;
+                  save_train_state after step 1, load_train_state, step 2
+                  against the uninterrupted step 2 (tolerances in the
+                  phase).
 
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 Every failed check raises: the script exits non-zero and prints no result.
@@ -151,63 +172,96 @@ def host_time_us(fn, reps=20, warmup=3):
     return dt / reps * 1e6
 
 
-profiler_retries = 0          # device_time_ms traces that saw no kernel
+profiler_retries = 0          # device_events traces retaken (events lost)
+PROFILER_MARKS = 8            # marker kernels that open a device_events trace
 
 
-def device_events(fn, reps=10):
+def _runtime_launch(e):
+    """A host-side CUDA runtime or driver record of a kernel launch, a copy
+    or a memset: one device event each."""
+    from torch.autograd import DeviceType
+
+    return (e.device_type != DeviceType.CUDA
+            and any(k in e.name for k in ("Launch", "Memcpy", "Memset")))
+
+
+def device_events(fn, reps=10, per_call=None):
     """The device events (kernels, copies, memsets) of ``reps`` calls of
-    fn() in one torch.profiler trace, in the order they started. A trace
-    this short now and then comes back without one device event, and after
-    some hundred traces in one process several in a row can: it is then
-    taken again after a pause, five times at most, each retry counted in
-    ``profiler_retries``."""
+    fn() in one torch.profiler trace, in the order they started. On the
+    H100 machines this runs on, a trace drops its first device records
+    (nearly always one, now and then dozens) and at times one more: so a
+    trace opens with marker kernels (``torch.cuda._sleep``, synchronised,
+    then left out), and it is kept only when its device events number
+    what was launched: ``per_call`` a call where the caller knows it, else
+    the launches, copies and memsets that the host side of the same trace
+    recorded (where that side misses some, two traces with the same
+    count). Otherwise it is taken again with twice the markers, after a
+    pause, eight times at most, each retry counted in ``profiler_retries``."""
     global profiler_retries
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    for attempt in range(5):
+    marks = PROFILER_MARKS
+    fullest = None           # where the host side recorded too few launches
+    for attempt in range(8):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(marks):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)]
-        if ev:
+        events = prof.events()
+        ev = [e for e in events if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and "spin_kernel" not in e.name]
+        launched = sum(1 for e in events if _runtime_launch(e)) - marks
+        if per_call is not None:
+            want = per_call * reps
+        elif len(ev) <= launched:
+            want = launched
+        else:                # no host record of some launch: two traces alike
+            want, fullest = fullest, max(fullest or 0, len(ev))
+        if ev and len(ev) == want:
             return sorted(ev, key=lambda e: e.time_range.start)
         profiler_retries += 1
-        time.sleep(1.0 + attempt)
-    raise RuntimeError("check failed: the profiler saw no device event in 5 traces")
+        marks *= 2
+        time.sleep(1.0)
+    raise RuntimeError(f"check failed: the profiler lost device events in 8 traces "
+                       f"({len(ev)} events for {want} launched by {reps} calls "
+                       f"in the last)")
 
 
-def device_time_ms(fn, reps=10):
+def device_time_ms(fn, reps=10, per_call=None):
     """What one fn() costs the card: the summed duration of every kernel,
     copy and memset it launches, from torch.profiler's device timeline,
-    mean over ``reps`` calls; and how many of them one call launches."""
-    ev = device_events(fn, reps)
+    mean over ``reps`` calls; and how many of them one call launches
+    (``per_call`` where the caller knows it)."""
+    ev = device_events(fn, reps, per_call)
     return sum(e.time_range.elapsed_us() for e in ev) / reps / 1e3, len(ev) / reps
 
 
 def device_times_ms(fns, reps=10):
     """The device ms of each of ``fns``, each launching one kernel, from
-    one trace of ``reps`` rounds of them: fewer traces than one apiece."""
-    ev = device_events(lambda: [f() for f in fns], reps)
-    require(len(ev) == len(fns) * reps,
-            f"device_times_ms: {len(ev)} device events for {len(fns)} x {reps} calls")
+    one trace of ``reps`` rounds of them (exactly ``len(fns)`` events a
+    round): fewer traces than one apiece."""
+    ev = device_events(lambda: [f() for f in fns], reps, per_call=len(fns))
     return [sum(e.time_range.elapsed_us() for e in ev[i::len(fns)]) / reps / 1e3
             for i in range(len(fns))]
 
 
-def measure(fn, reps=20, warmup=3):
+def measure(fn, reps=20, warmup=3, launches=None):
     """The three times of one fn() on CUDA tensors. ``ms``: CUDA events
     around ``reps`` back-to-back calls, so the larger of what the host and
-    the card take a call; ``device_ms``: the card's share (profiler);
-    ``host_us``: the host's share (no synchronisation). Where ms is near
-    host_us / 1000 and far above device_ms, the host sets the time."""
-    dev_ms, n = device_time_ms(fn)
+    the card take a call; ``device_ms``: the card's share (profiler;
+    ``launches`` is the device operations a call, where the caller knows
+    it); ``host_us``: the host's share (no synchronisation). Where ms is
+    near host_us / 1000 and far above device_ms, the host sets the time."""
+    dev_ms, n = device_time_ms(fn, per_call=launches)
     return {"ms": cuda_time_ms(fn, reps, warmup), "device_ms": dev_ms,
             "host_us": host_time_us(fn, reps, warmup), "device_launches": n}
 
@@ -292,8 +346,8 @@ def smooth_flow(b, xs, ys):
     return torch.stack([fx, fy], -1)
 
 
-def corr_inputs(dev, b, centres, dtype, h8=H // 8, w8=W // 8, seed=1):
-    """K1 inputs: f1 (B, H8, W8, 256) and the 4 levels of f2 (pooled in f32,
+def corr_inputs(dev, b, centres, dtype, h8=H // 8, w8=W // 8, seed=1, c=256):
+    """K1 inputs: f1 (B, H8, W8, C) and the 4 levels of f2 (pooled in f32,
     then cast to ``dtype``, as RAFT does) of random features, and centres
     (B, H8, W8, 2): ``noisy``, the identity plus 4 px of noise drawn a query
     (the input on record since K1 was first ported; no path feeds it);
@@ -306,8 +360,8 @@ def corr_inputs(dev, b, centres, dtype, h8=H // 8, w8=W // 8, seed=1):
     from robust_pose_tpu_torch.ops import corr_onthefly as K1
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    f1 = torch.randn(b, h8 * w8, 256, generator=g, device=dev).to(dtype)
-    f2 = torch.randn(b, h8, w8, 256, generator=g, device=dev)
+    f1 = torch.randn(b, h8 * w8, c, generator=g, device=dev).to(dtype)
+    f2 = torch.randn(b, h8, w8, c, generator=g, device=dev)
     levels = [l.to(dtype).contiguous() for l in K1.pool_fmap_pyramid(f2)]
     ys, xs = torch.meshgrid(torch.arange(h8, device=dev, dtype=torch.float32),
                             torch.arange(w8, device=dev, dtype=torch.float32),
@@ -329,13 +383,13 @@ def corr_inputs(dev, b, centres, dtype, h8=H // 8, w8=W // 8, seed=1):
         coords[:, 17, 0] = float("inf")
     else:
         coords[:, :200] -= 40.0                   # windows off the map
-    return (f1.reshape(b, h8, w8, 256), levels,
+    return (f1.reshape(b, h8, w8, c), levels,
             coords.reshape(b, h8, w8, 2).contiguous())
 
 
-def corr_entries(f1, levels, coords):
+def corr_entries(f1, levels, coords, radius=4):
     """The calls of one K1 lookup on these inputs, each returning per-level
-    (B, 81, N) f32: the kernel through ``onthefly_lookup`` (RAFT's entry:
+    (B, D*D, N) f32: the kernel through ``onthefly_lookup`` (RAFT's entry:
     one launch a pyramid, or one a level in an earlier tree of the
     package), the plain version, and ``level(l)``, level l alone through the
     kernel with the queries in their 2-D tiles where the package has a
@@ -344,24 +398,25 @@ def corr_entries(f1, levels, coords):
 
     b, h8, w8, c = f1.shape
     f1f, cs = f1.reshape(b, h8 * w8, c), coords.reshape(b, h8 * w8, 2)
-    kernel = lambda: K1.onthefly_lookup(f1, levels, coords)
-    plain = lambda: [K1.corr_lookup_level_plain(f1f, v, cs, 4, 2.0 ** l)
+    kernel = lambda: K1.onthefly_lookup(f1, levels, coords, radius)
+    plain = lambda: [K1.corr_lookup_level_plain(f1f, v, cs, radius, 2.0 ** l)
                      for l, v in enumerate(levels)]
     if hasattr(K1, "onthefly_lookup_pyramid"):
         level = lambda l: K1.onthefly_lookup_pyramid(f1, [levels[l]], coords,
-                                                     level_scale=2.0 ** l)
+                                                     radius, 2.0 ** l)
     else:
-        level = lambda l: K1.corr_lookup_level(f1f, levels[l], cs, 4, 2.0 ** l)
+        level = lambda l: K1.corr_lookup_level(f1f, levels[l], cs, radius,
+                                               2.0 ** l)
     return kernel, plain, level
 
 
-def corr_check(f1, levels, coords, tol, what):
+def corr_check(f1, levels, coords, tol, what, radius=4):
     """K1 against its plain version (NaNs at the same places), the same
     bits from two calls, and one buffer for the levels where the package
     has a pyramid entry; returns the largest error."""
     from robust_pose_tpu_torch.ops import corr_onthefly as K1
 
-    kernel, plain, _ = corr_entries(f1, levels, coords)
+    kernel, plain, _ = corr_entries(f1, levels, coords, radius)
     got = kernel()
     err = lookup_err(got, plain(), f"corr {what}")
     require(err <= tol, f"corr {what}: max |err| {err} > {tol}")
@@ -372,10 +427,10 @@ def corr_check(f1, levels, coords, tol, what):
     return err
 
 
-def corr_bound(f1, levels, coords):
+def corr_bound(f1, levels, coords, radius=4):
     """Bytes: f1, the levels and the centres read once, the outputs written
     once; operations: one C-long multiply-add per in-level window pixel
-    (the 10 x 10 a radius-4 bilinear window touches), at the peak rate of
+    (the (2r+2)^2 a radius-r bilinear window touches), at the peak rate of
     the inputs' type. Returns (bound ms, what bounds it, bytes, ops)."""
     import torch
 
@@ -383,25 +438,30 @@ def corr_bound(f1, levels, coords):
     n = h8 * w8
     esz = f1.element_size()
     nbytes = (f1.numel() * esz + sum(l.numel() * esz for l in levels)
-              + coords.numel() * 4 + len(levels) * b * 81 * n * 4)
+              + coords.numel() * 4 + len(levels) * b * (2 * radius + 1) ** 2 * n * 4)
     ops = window_taps([l.shape[1:3] for l in levels],
-                      coords.reshape(b, n, 2)) * c * 2
+                      coords.reshape(b, n, 2), radius) * c * 2
     peak = BF16_FLOPS if f1.dtype == torch.bfloat16 else F32_FLOPS
     t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / peak
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations", nbytes, ops
 
 
-def kernel_corr(dev):
-    """K1 at the main path's shapes, 64 x 80 queries, C = 256, bf16, all 4
-    levels: B = 16 (an f2f window, 2T) at ``noisy`` centres (the row on
-    record) and at ``smooth`` ones, B = 1 (the f2m per-frame step) and
-    B = 8 (the f2m precompute) at ``smooth``; each against the plain
-    version (bf16 products are exact in f32: only the order of the f32 sums
-    differs, tol 1e-4) and timed with the device time of each level, beside
-    the whole-slab product that the Pallas kernel computes (``torch.bmm``
-    of level-0 f2 with f1^T; the port never calls it). Then the f32
-    instantiation (B = 2, tol 1e-5) timed apart, a ragged case (B = 3,
-    15 x 19: N = 285, f32 and bf16, far-off, huge, infinite and NaN
+K1_CASES = (("noisy", 2 * T_WINDOW, "noisy"), ("smooth", 2 * T_WINDOW, "smooth"),
+            ("smooth_b1", 1, "smooth"), ("smooth_b8", T_WINDOW, "smooth"))
+
+
+def kernel_corr(dev, radius=4, c=256, cases=K1_CASES):
+    """K1 at the main path's shapes, 64 x 80 queries, bf16, all 4 levels:
+    radius 4 and C = 256 (RAFT large) at B = 16 (an f2f window, 2T) at
+    ``noisy`` centres (the row on record) and at ``smooth`` ones, B = 1
+    (the f2m per-frame step) and B = 8 (the f2m precompute) at ``smooth``;
+    radius 3 and C = 128 (RAFT small) at B = 16 and B = 1. Each against the
+    plain version (bf16 products are exact in f32: only the order of the f32
+    sums differs, tol 1e-4) and timed with the device time of each level,
+    beside the whole-slab product that the Pallas kernel computes
+    (``torch.bmm`` of level-0 f2 with f1^T; the port never calls it). Then
+    the f32 instantiation (B = 2, tol 1e-5) timed apart, a ragged case
+    (B = 3, 15 x 19: N = 285, f32 and bf16, far-off, huge, infinite and NaN
     centres) and the one-level entry at level 2."""
     import torch
 
@@ -409,24 +469,22 @@ def kernel_corr(dev):
 
     saved = K1.launches
     one_launch = hasattr(K1, "onthefly_lookup_pyramid")
+    dd = (2 * radius + 1) ** 2
     rows = {}
     worst = 0.0
-    for what, b, centres in (("noisy", 2 * T_WINDOW, "noisy"),
-                             ("smooth", 2 * T_WINDOW, "smooth"),
-                             ("smooth_b1", 1, "smooth"),
-                             ("smooth_b8", T_WINDOW, "smooth")):
-        f1, levels, coords = corr_inputs(dev, b, centres, torch.bfloat16)
-        tol = 1e-4    # f32 sums of 256 exact bf16 products, in other orders
-        err = corr_check(f1, levels, coords, tol, what)
+    for what, b, centres in cases:
+        f1, levels, coords = corr_inputs(dev, b, centres, torch.bfloat16, c=c)
+        tol = 1e-4    # f32 sums of C exact bf16 products, in other orders
+        err = corr_check(f1, levels, coords, tol, what, radius)
         worst = max(worst, err)
-        kernel, plain, level = corr_entries(f1, levels, coords)
-        t = measure(kernel)
+        kernel, plain, level = corr_entries(f1, levels, coords, radius)
+        t = measure(kernel, launches=1 if one_launch else None)
         if one_launch:
             require(t["device_launches"] == 1,
                     f"corr {what}: {t['device_launches']} device launches a call")
-        bound, by, nbytes, ops = corr_bound(f1, levels, coords)
-        f1f = f1.reshape(b, -1, 256)
-        f2f = levels[0].reshape(b, -1, 256)
+        bound, by, nbytes, ops = corr_bound(f1, levels, coords, radius)
+        f1f = f1.reshape(b, -1, c)
+        f2f = levels[0].reshape(b, -1, c)
         slab = lambda: torch.bmm(f2f, f1f.transpose(1, 2))
         rows[what] = {
             "batch": b, "centres": centres, **t,
@@ -439,58 +497,66 @@ def kernel_corr(dev):
         del f1, levels, coords, kernel, plain, level, f1f, f2f, slab
         torch.cuda.empty_cache()
     # f32: exact FMAs on the CUDA cores (the card-vs-CPU phases' dtype)
-    f1, levels, coords = corr_inputs(dev, 2, "smooth", torch.float32)
-    err32 = corr_check(f1, levels, coords, 1e-5, "f32")
-    kernel, plain, _ = corr_entries(f1, levels, coords)
-    bound, by, nbytes, ops = corr_bound(f1, levels, coords)
+    f1, levels, coords = corr_inputs(dev, 2, "smooth", torch.float32, c=c)
+    err32 = corr_check(f1, levels, coords, 1e-5, "f32", radius)
+    kernel, plain, _ = corr_entries(f1, levels, coords, radius)
+    bound, by, nbytes, ops = corr_bound(f1, levels, coords, radius)
     f32_row = {"batch": 2, "centres": "smooth", **measure(kernel),
                "plain_ms": cuda_time_ms(plain, reps=3, warmup=1),
                "bound_ms": bound, "bound_by": by, "max_abs_err": err32,
                "tol": 1e-5}
     # the one-level entry at level 2 (its queries in one row of tiles)
-    f1, levels, coords = corr_inputs(dev, 2 * T_WINDOW, "smooth", torch.bfloat16)
+    f1, levels, coords = corr_inputs(dev, 2 * T_WINDOW, "smooth", torch.bfloat16,
+                                     c=c)
     b = f1.shape[0]
-    f1f, cs = f1.reshape(b, -1, 256), coords.reshape(b, -1, 2)
-    lvl2 = lookup_err([K1.corr_lookup_level(f1f, levels[2], cs, 4, 4.0)],
-                      [K1.corr_lookup_level_plain(f1f, levels[2], cs, 4, 4.0)],
-                      "corr level 2")
+    f1f, cs = f1.reshape(b, -1, c), coords.reshape(b, -1, 2)
+    lvl2 = lookup_err(
+        [K1.corr_lookup_level(f1f, levels[2], cs, radius, 4.0)],
+        [K1.corr_lookup_level_plain(f1f, levels[2], cs, radius, 4.0)],
+        "corr level 2")
     require(lvl2 <= 1e-4, f"corr level 2: max |err| {lvl2} > 1e-4")
     ragged = {}
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-4)):
-        f1, levels, coords = corr_inputs(dev, 3, "ragged", dtype, 15, 19, seed=8)
-        ref = corr_entries(f1, levels, coords)[1]()
+        f1, levels, coords = corr_inputs(dev, 3, "ragged", dtype, 15, 19, seed=8,
+                                         c=c)
+        ref = corr_entries(f1, levels, coords, radius)[1]()
         require(all(bool(torch.isnan(r).any()) for r in ref)
-                and tuple(ref[-1].shape) == (3, 81, 285),
+                and tuple(ref[-1].shape) == (3, dd, 285),
                 "corr ragged: the NaN centres were lost")
-        ragged[str(dtype).split(".")[-1]] = corr_check(f1, levels, coords, tol,
-                                                       f"ragged {dtype}")
+        ragged[str(dtype).split(".")[-1]] = corr_check(
+            f1, levels, coords, tol, f"ragged {dtype}", radius)
     del f1, levels, coords, f1f, cs, kernel, plain
     torch.cuda.empty_cache()
     K1.launches = saved
     worst = max(worst, err32, lvl2, *ragged.values())
     n_launch = "1 launch" if one_launch else "4 launches"
-    return {"name": "corr_window_lookup", "route": "cuda",
+    return {"name": "corr_window_lookup" + ("" if radius == 4 else f"_r{radius}"),
+            "route": "cuda",
             "source": "robust_pose_tpu_torch/csrc/corr_onthefly.cu",
             "replaces": "robust_pose_tpu/ops/pallas_corr_onthefly.py:64",
             "max_abs_err": worst, "tol": {"bf16": 1e-4, "f32": 1e-5},
             **{k: rows["noisy"][k] for k in (
                 "ms", "device_ms", "host_us", "device_launches", "plain_ms",
                 "bound_ms", "bound_by", "library_ms", "bytes", "ops")},
-            "unit": f"one 4-level lookup at B = 16 ({n_launch})",
+            "unit": f"one 4-level lookup at B = 16, radius {radius}, C = {c} "
+                    f"({n_launch})",
             "per_input": rows, "f32": f32_row, "level2_err": lvl2,
             "err_ragged": ragged}
 
 
-def kernel_instance_norm(dev):
+def kernel_instance_norm(dev, widths=(64, 96, 128)):
     """K2 at the three fnet shapes (B = 16, bf16); the time of one fnet
-    pass's 15 norms = 5 x (t(256x320x64) + t(128x160x96) + t(64x80x128))."""
+    pass's 15 norms = 5 x (t(256x320xC1) + t(128x160xC2) + t(64x80xC3)),
+    (C1, C2, C3) = (64, 96, 128) in RAFT large, (32, 64, 96) in RAFT small
+    (its fnet also has 5 norms at each of the three scales)."""
     import torch
 
     from robust_pose_tpu_torch.ops import instance_norm as K2
 
     g = torch.Generator(device=dev).manual_seed(2)
     b = 2 * T_WINDOW
-    shapes = [(H // 2, W // 2, 64), (H // 4, W // 4, 96), (H // 8, W // 8, 128)]
+    shapes = [(H // 2, W // 2, widths[0]), (H // 4, W // 4, widths[1]),
+              (H // 8, W // 8, widths[2])]
     per = []
     tot = {"ms": 0.0, "device_ms": 0.0, "host_us": 0.0, "device_launches": 0.0,
            "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
@@ -522,7 +588,8 @@ def kernel_instance_norm(dev):
                      ("bytes", nbytes), ("ops", ops)):
             tot[k] += 5 * v
     bound = max(tot["bytes"] / HBM_BYTES_PER_S, tot["ops"] / F32_FLOPS) * 1e3
-    return {"name": "instance_norm_stats", "route": "triton",
+    return {"name": "instance_norm_stats" + ("" if widths[0] == 64 else "_small"),
+            "route": "triton",
             "source": "robust_pose_tpu_torch/ops/instance_norm.py",
             "replaces": "robust_pose_tpu/ops/pallas_instance_norm.py:27",
             "max_abs_err": err_all, "tol": "rel 1e-5",
@@ -776,7 +843,7 @@ def kernel_lm_solve(dev):
             "cases": cases}
 
 
-def lanewise_inputs(dev, centres="noisy"):
+def lanewise_inputs(dev, centres="noisy", radius=4):
     """K4/K5 inputs at the training step's shapes: B = 3 x 8 RAFT pairs,
     N = 64 x 80 queries, the 4-level transposed bf16 volume of random
     C = 256 features, and centres with 200 queries a window off the level:
@@ -801,12 +868,12 @@ def lanewise_inputs(dev, centres="noisy"):
     flow = smooth_flow(b, xs, ys).reshape(b, -1, 2) if centres == "smooth" else noise
     coords = torch.stack([xs, ys], -1).reshape(1, -1, 2) + flow
     coords[:, :200] -= 40.0
-    grads = [torch.randn(b, 81, h8 * w8, generator=g, device=dev)
-             for _ in pyramid]
+    grads = [torch.randn(b, (2 * radius + 1) ** 2, h8 * w8, generator=g,
+                         device=dev) for _ in pyramid]
     return pyramid, coords.contiguous(), grads
 
 
-def lanewise_small_inputs(dev, b, h8, w8, levels, dtype, seed=8):
+def lanewise_small_inputs(dev, b, h8, w8, levels, dtype, seed=8, radius=4):
     """A small transposed pyramid (random C = 32 features), centres near the
     identity with a few queries far off the level, huge, infinite and NaN,
     and output cotangents."""
@@ -831,44 +898,47 @@ def lanewise_small_inputs(dev, b, h8, w8, levels, dtype, seed=8):
     coords[:, 15] = 1e30
     coords[:, 16] = float("-inf")
     coords[:, 17, 0] = float("inf")
-    grads = [torch.randn(b, 81, h8 * w8, generator=g, device=dev)
-             for _ in pyramid]
+    grads = [torch.randn(b, (2 * radius + 1) ** 2, h8 * w8, generator=g,
+                         device=dev) for _ in pyramid]
     return pyramid, coords.contiguous(), grads
 
 
-def window_taps(level_shapes, coords):
-    """In-level taps of the (2r+2)^2 = 100 each window touches, summed over
-    queries and levels ((Hl, Wl) each): what this run's data needs read."""
+def window_taps(level_shapes, coords, radius=4):
+    """In-level taps of the (2r+2)^2 (100 at radius 4, 64 at 3) each window
+    touches, summed over queries and levels ((Hl, Wl) each): what this
+    run's data needs read."""
     import torch
 
     n = 0
     for lvl, (hl, wl) in enumerate(level_shapes):
-        x0 = torch.floor(coords[..., 0] / 2 ** lvl) - 4
-        y0 = torch.floor(coords[..., 1] / 2 ** lvl) - 4
-        dd = torch.arange(10, device=coords.device)
+        x0 = torch.floor(coords[..., 0] / 2 ** lvl) - radius
+        y0 = torch.floor(coords[..., 1] / 2 ** lvl) - radius
+        dd = torch.arange(2 * radius + 2, device=coords.device)
         ny = ((y0[..., None] + dd >= 0) & (y0[..., None] + dd < hl)).sum(-1)
         nx = ((x0[..., None] + dd >= 0) & (x0[..., None] + dd < wl)).sum(-1)
         n += int((ny * nx).sum())
     return n
 
 
-def grid_sample_yardstick(vols, coords):
+def grid_sample_yardstick(vols, coords, radius=4):
     """Upstream RAFT's CorrBlock lookup on the same volumes and centres:
     F.grid_sample(align_corners=True, zeros) over (B*N, 1, Hl, Wl) f32
-    volumes with a 9 x 9 grid per query (dy-major). ``vols``: those f32
+    volumes with a D x D grid per query (dy-major). ``vols``: those f32
     volumes; returns them, the grids (made outside the timed call) and the
     call."""
     import torch
     import torch.nn.functional as F
 
     m = vols[0].shape[0]
-    dd = torch.arange(-4, 5, device=coords.device, dtype=torch.float32)
+    d = 2 * radius + 1
+    dd = torch.arange(-radius, radius + 1, device=coords.device,
+                      dtype=torch.float32)
     grids = []
     for lvl, v in enumerate(vols):
         hl, wl = v.shape[2:]
         c = coords.reshape(m, 1, 1, 2) / 2 ** lvl
-        x = (c[..., 0] + dd[None, None, :]).expand(m, 9, 9)
-        y = (c[..., 1] + dd[None, :, None]).expand(m, 9, 9)
+        x = (c[..., 0] + dd[None, None, :]).expand(m, d, d)
+        y = (c[..., 1] + dd[None, :, None]).expand(m, d, d)
         grids.append(torch.stack([2.0 * x / (wl - 1) - 1.0,
                                   2.0 * y / (hl - 1) - 1.0], -1).contiguous())
 
@@ -879,7 +949,7 @@ def grid_sample_yardstick(vols, coords):
     return vols, grids, call
 
 
-def lanewise_entries(pyramid, coords, grads):
+def lanewise_entries(pyramid, coords, grads, radius=4):
     """The calls of one 4-level lookup and of one 4-level backward, each
     returning per-level lists: kernel forward, plain forward, kernel
     backward, plain backward. The package's pyramid entries (one launch a
@@ -890,18 +960,21 @@ def lanewise_entries(pyramid, coords, grads):
     from robust_pose_tpu_torch.ops import corr_lanewise as L
 
     scales = [float(2 ** l) for l in range(len(pyramid))]
-    fwd_plain = lambda: [L.lanewise_fwd_plain(v, coords, 4, s)
+    dd = (2 * radius + 1) ** 2
+    fwd_plain = lambda: [L.lanewise_fwd_plain(v, coords, radius, s)
                          for v, s in zip(pyramid, scales)]
-    bwd_plain = lambda: [L.lanewise_bwd_plain(v, coords, g, 4, s)
+    bwd_plain = lambda: [L.lanewise_bwd_plain(v, coords, g, radius, s)
                          for v, g, s in zip(pyramid, grads, scales)]
     if hasattr(L, "lanewise_fwd_pyramid"):
         gbuf = torch.cat(grads, dim=1)
 
         def fwd():
-            return list(L.lanewise_fwd_pyramid(pyramid, coords).split(81, dim=1))
+            return list(L.lanewise_fwd_pyramid(pyramid, coords, radius)
+                        .split(dd, dim=1))
 
         def bwd():
-            dcorrs, dcoords = L.lanewise_bwd_pyramid(pyramid, coords, gbuf)
+            dcorrs, dcoords = L.lanewise_bwd_pyramid(pyramid, coords, gbuf,
+                                                     radius)
             return dcorrs, dcoords
     else:
         fwd = lambda: [L.lanewise_fwd(v, coords, 4, s)
@@ -914,7 +987,7 @@ def lanewise_entries(pyramid, coords, grads):
     return fwd, fwd_plain, bwd, bwd_plain
 
 
-def lanewise_check(pyramid, coords, grads, what):
+def lanewise_check(pyramid, coords, grads, what, radius=4):
     """K4 and K5 against their plain versions on these inputs. K4: the
     kernel rounds each product and sum as the plain version's separate
     multiplies and adds do (no FMA contraction): tol 1e-6. K5: dcorr rounds
@@ -928,7 +1001,8 @@ def lanewise_check(pyramid, coords, grads, what):
 
     from robust_pose_tpu_torch.ops import corr_lanewise as L
 
-    fwd, fwd_plain, bwd, bwd_plain = lanewise_entries(pyramid, coords, grads)
+    fwd, fwd_plain, bwd, bwd_plain = lanewise_entries(pyramid, coords, grads,
+                                                      radius)
     out_k, out_p = fwd(), fwd_plain()
     err4 = lookup_err(out_k, out_p, f"{what}: lanewise forward")
     require(err4 <= 1e-6, f"{what}: lanewise forward max |err| {err4} > 1e-6")
@@ -974,9 +1048,10 @@ def lanewise_check(pyramid, coords, grads, what):
             "dirty_share": dirty_share}
 
 
-def kernel_lanewise(dev):
+def kernel_lanewise(dev, radius=4):
     """K4 and K5 at the training step's shapes (4 levels, one launch a
-    call) at ``noisy`` and at ``smooth`` centres (see lanewise_inputs),
+    call; radius 4 for RAFT large, 3 for RAFT small) at ``noisy`` and at
+    ``smooth`` centres (see lanewise_inputs),
     against their plain versions on the card and timed beside upstream
     RAFT's grid_sample lookup and its autograd backward, with the device
     time of each level through the one-level entries; and on small cases
@@ -990,36 +1065,39 @@ def kernel_lanewise(dev):
 
     saved = (L.launches, L.bwd_launches)
     one_launch = hasattr(L, "lanewise_fwd_pyramid")
+    d = 2 * radius + 1
     small = {}
     for b, h8, w8, levels in ((3, 15, 19, 4), (2, 6, 7, 3), (2, 16, 20, 4)):
         for dtype in (torch.float32, torch.bfloat16):
             what = f"{b}x{h8}x{w8} {str(dtype).split('.')[-1]}"
             small[what] = lanewise_check(
-                *lanewise_small_inputs(dev, b, h8, w8, levels, dtype), what)
+                *lanewise_small_inputs(dev, b, h8, w8, levels, dtype,
+                                       radius=radius), what, radius)
     per_input = {}
     for centres in ("noisy", "smooth"):
-        pyramid, coords, grads = lanewise_inputs(dev, centres)
+        pyramid, coords, grads = lanewise_inputs(dev, centres, radius)
         b, _, _, n = pyramid[0].shape
-        errs = lanewise_check(pyramid, coords, grads, centres)
-        fwd, fwd_plain, bwd, bwd_plain = lanewise_entries(pyramid, coords, grads)
-        t4 = measure(fwd)
-        t5 = measure(bwd)
+        errs = lanewise_check(pyramid, coords, grads, centres, radius)
+        fwd, fwd_plain, bwd, bwd_plain = lanewise_entries(pyramid, coords, grads,
+                                                          radius)
+        t4 = measure(fwd, launches=1 if one_launch else None)
+        t5 = measure(bwd, launches=1 if one_launch else None)
         if one_launch:
             require(t4["device_launches"] == 1 and t5["device_launches"] == 1,
                     f"lanewise: {t4['device_launches']} and "
                     f"{t5['device_launches']} device operations a call")
         levels4 = device_times_ms(
-            [lambda l=l, v=v: L.lanewise_fwd(v, coords, 4, 2.0 ** l)
+            [lambda l=l, v=v: L.lanewise_fwd(v, coords, radius, 2.0 ** l)
              for l, v in enumerate(pyramid)])
         levels5 = device_times_ms(
-            [lambda l=l, v=v, g=g: L.lanewise_bwd(v, coords, g, 4, 2.0 ** l)
+            [lambda l=l, v=v, g=g: L.lanewise_bwd(v, coords, g, radius, 2.0 ** l)
              for l, (v, g) in enumerate(zip(pyramid, grads))])
         plain4 = cuda_time_ms(fwd_plain, reps=3, warmup=1)
         plain5 = cuda_time_ms(bwd_plain, reps=3, warmup=1)
         vols, grids, lib = grid_sample_yardstick(
             [v.permute(0, 3, 1, 2).reshape(b * n, 1, *v.shape[1:3]).float()
-             for v in pyramid], coords)
-        lib_err = max(float((o.reshape(b, n, 81).transpose(1, 2) - p).abs().max())
+             for v in pyramid], coords, radius)
+        lib_err = max(float((o.reshape(b, n, d * d).transpose(1, 2) - p).abs().max())
                       for o, p in zip(lib(), fwd_plain()))
         lib4 = cuda_time_ms(lib, reps=5)
         lib4_device, _ = device_time_ms(lib, reps=5)
@@ -1033,7 +1111,7 @@ def kernel_lanewise(dev):
         lib5 = cuda_time_ms(lib_bwd, reps=5)
         lib5_device, _ = device_time_ms(lib_bwd, reps=5)
         del vols, grids, outs, gouts, lib, lib_bwd
-        taps = window_taps([v.shape[1:3] for v in pyramid], coords)
+        taps = window_taps([v.shape[1:3] for v in pyramid], coords, radius)
         vol_bytes = sum(v.numel() * v.element_size() for v in pyramid)
         # what writing dcorr's bytes once costs at the least: one zero fill
         fill = torch.empty(vol_bytes // 2, dtype=torch.bfloat16, device=dev)
@@ -1041,13 +1119,13 @@ def kernel_lanewise(dev):
         del fill
         # K4 bytes: the in-level taps (bf16), the centres, the f32 outputs;
         # operations: 3 per tap row entry and 3 per output (f32)
-        bytes4 = taps * 2 + coords.numel() * 4 + len(pyramid) * b * 81 * n * 4
-        ops4 = len(pyramid) * b * n * (9 * 10 * 3 + 81 * 3)
+        bytes4 = taps * 2 + coords.numel() * 4 + len(pyramid) * b * d * d * n * 4
+        ops4 = len(pyramid) * b * n * (d * (d + 1) * 3 + d * d * 3)
         # K5 bytes: the dense dcorr write (bf16), the taps, the centres, the
         # output cotangents and the centre cotangents (f32)
         bytes5 = (vol_bytes + taps * 2 + coords.numel() * 4
-                  + len(pyramid) * b * 81 * n * 4 + len(pyramid) * b * n * 2 * 4)
-        ops5 = len(pyramid) * b * n * (10 * 10 * 3 + 9 * 10 * 8)
+                  + len(pyramid) * b * d * d * n * 4 + len(pyramid) * b * n * 2 * 4)
+        ops5 = len(pyramid) * b * n * ((d + 1) ** 2 * 3 + d * (d + 1) * 8)
         rows = []
         for t, plain, lib_ms, lib_dev, levels, nbytes, ops in (
                 (t4, plain4, lib4, lib4_device, levels4, bytes4, ops4),
@@ -1065,11 +1143,13 @@ def kernel_lanewise(dev):
         torch.cuda.empty_cache()
     L.launches, L.bwd_launches = saved
     n_launch = "1 launch" if one_launch else "4 launches"
+    tail = "" if radius == 4 else f"_r{radius}"
     out = []
     for k, (name, line, unit) in enumerate((
-            ("lanewise_lookup", 72, f"one 4-level lookup ({n_launch})"),
-            ("lanewise_lookup_bwd", 153,
-             f"one 4-level lookup backward ({n_launch})"))):
+            ("lanewise_lookup" + tail, 72,
+             f"one 4-level lookup, radius {radius} ({n_launch})"),
+            ("lanewise_lookup_bwd" + tail, 153,
+             f"one 4-level lookup backward, radius {radius} ({n_launch})"))):
         worst = max([per_input[c][1] for c in per_input] + list(small.values()),
                     key=lambda e: e["fwd"] if k == 0 else max(e["dcorr"], e["dcoords"]))
         out.append({"name": name, "route": "cuda",
@@ -1263,7 +1343,10 @@ def phase_kernels(dev):
     k3 = kernel_normal_eq(dev)
     k3["solve"] = kernel_lm_solve(dev)
     out = [kernel_corr(dev), kernel_instance_norm(dev), k3,
-           *kernel_lanewise(dev), *kernel_pixel(dev)]
+           *kernel_lanewise(dev), *kernel_pixel(dev),
+           # RAFT small: K1, K4, K5 at radius 3, K2 at its fnet's widths
+           kernel_corr(dev, 3, 128, K1_CASES[:3]),
+           kernel_instance_norm(dev, (32, 64, 96)), *kernel_lanewise(dev, 3)]
     torch.cuda.synchronize()
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
           "profiler_retries": profiler_retries, "kernels": out})
@@ -1288,9 +1371,11 @@ def small_state_dict(model_cfg, seed):
     return sd
 
 
-def phase_slice(dev):
+def phase_slice(dev, small=False):
     """64x96, f32, the same weights and frames on the card (kernels) and on
-    the CPU (plain versions); tolerances of tests/test_torch_port_slice.py."""
+    the CPU (plain versions); tolerances of tests/test_torch_port_slice.py.
+    ``small``: RAFT's small variant (K1 at radius 3, C = 128), the f2f half
+    of phase small_slice. Returns the card's model config and weights."""
     import torch
 
     from robust_pose_tpu_torch.slam.pose_estimator import PoseEstimator
@@ -1298,7 +1383,8 @@ def phase_slice(dev):
     h, w = 64, 96
     model_cfg = {"image_shape": (h, w), "iters": 2, "lbgfs_iters": 5,
                  "use_weights": True, "mixed_precision": False, "unet_levels": 1,
-                 "lookup": "onthefly"}       # K1 on the card, its plain version here
+                 "lookup": "onthefly",       # K1 on the card, its plain version here
+                 "small": small}
     slam = {"frame2frame": True, "lbgfs_iters": 5, "conf_weighing": True,
             "depth_clipping": [1, 250]}
     K = np.array([[100.0, 0, w / 2], [0, 100.0, h / 2], [0, 0, 1.0]])
@@ -1333,11 +1419,13 @@ def phase_slice(dev):
             "slice: depth-valid masks differ")
     require(dist <= 1e-4, f"slice: pose tangent distance {dist} > 1e-4")
     require(c["k1"] > 0 and p["k1"] == 0, f"slice: K1 launches {c['k1']}, {p['k1']}")
-    emit({"phase": "slice", "shape": [h, w], "pose_tangent_dist": dist,
+    emit({"phase": "small_slice" if small else "slice", "part": "f2f",
+          "shape": [h, w], "pose_tangent_dist": dist,
           "k1_launches_cuda": c["k1"],
           "tol": 1e-4, "success": c["succ"].tolist(),
           "niter_cuda": c["niter"].tolist(), "niter_cpu": p["niter"].tolist(),
           "valid_fraction": float(c["first_valid"].float().mean())})
+    return model_cfg, sd, slam, K, (ls, rs, mask)
 
 
 # ---------------------------------------------------------------------------
@@ -1349,11 +1437,11 @@ F2F_SLAM = {"frame2frame": True, "lbgfs_iters": 20, "conf_weighing": True,
 
 
 def production_estimator(dev, mixed_precision, state_dict=None, disparity=8,
-                         slam=F2F_SLAM, lookup=None):
+                         slam=F2F_SLAM, lookup=None, small=False):
     """A full-width PoseEstimator (12 GRU iterations, weight heads, 3 UNet
-    levels) for the SLAM config ``slam``; random seeded weights with
-    bench.py's flow head (zero kernel, bias = disparity / (8 * iters))
-    unless ``state_dict`` is given."""
+    levels; ``small``: RAFT's small variant) for the SLAM config ``slam``;
+    random seeded weights with bench.py's flow head (zero kernel, bias =
+    disparity / (8 * iters)) unless ``state_dict`` is given."""
     import torch
 
     from robust_pose_tpu_torch.models.posenet import PoseNet
@@ -1361,7 +1449,8 @@ def production_estimator(dev, mixed_precision, state_dict=None, disparity=8,
 
     model_cfg = {"image_shape": (H, W), "iters": 12,
                  "lbgfs_iters": slam["lbgfs_iters"], "use_weights": True,
-                 "unet_levels": 3, "mixed_precision": mixed_precision}
+                 "unet_levels": 3, "mixed_precision": mixed_precision,
+                 "small": small}
     if lookup is not None:
         model_cfg["lookup"] = lookup
     if state_dict is None:
@@ -1380,12 +1469,15 @@ def production_estimator(dev, mixed_precision, state_dict=None, disparity=8,
     return est, state_dict
 
 
-def phase_main(dev, smi):
+def phase_main(dev, smi, small=False):
+    """Production f2f at full width (``small``: RAFT's small variant, the
+    f2f half of phase small), then its profile."""
     import torch
 
     from robust_pose_tpu_torch import se3
 
-    est, sd = production_estimator(dev, True)
+    what = "small" if small else "main"
+    est, sd = production_estimator(dev, True, small=small)
     ls, rs = make_sequence(1)
     mask1 = np.ones((1, H, W, 1), bool)
     est(ls[0], rs[0], mask1)
@@ -1411,22 +1503,26 @@ def phase_main(dev, smi):
     launches = {k: v for k, v in launch_counts().items() if k in (
         "corr_window_lookup", "instance_norm_stats", "normal_eq", "lm_solve")}
 
-    require(bool(torch.isfinite(poses).all()), "main: non-finite poses")
+    require(bool(torch.isfinite(poses).all()), f"{what}: non-finite poses")
     require(launches["corr_window_lookup"] == 12 * n_timed,
-            f"main: corr lookups {launches}")
+            f"{what}: corr lookups {launches}")
+    # 15 instance norms in fnet (both variants); cnet has BatchNorm (large)
+    # or no norm (small)
     require(launches["instance_norm_stats"] == 15 * n_timed,
-            f"main: instance norms {launches}")
+            f"{what}: instance norms {launches}")
     # one LM solve launch a window (every build inside it)
-    one_solve_a_call(launches, "main")
-    require(launches["lm_solve"] == n_timed, f"main: LM solves {launches}")
+    one_solve_a_call(launches, what)
+    require(launches["lm_solve"] == n_timed, f"{what}: LM solves {launches}")
     succ = torch.cat(succs)
     it = est.last_solver_iters.cpu()
     fps = n_timed * T_WINDOW / dt
+    if small:
+        require(bool(succ.all()), f"small: success {succ.tolist()}")
 
     # bf16 vs f32 on one window from the same first frame and weights
     rel = {}
     for mp in (True, False):
-        e, _ = production_estimator(dev, mp, state_dict=sd)
+        e, _ = production_estimator(dev, mp, state_dict=sd, small=small)
         e(ls[0], rs[0], mask1)
         p, _ = e.track_window(windows[0][0], windows[0][1], masks)
         prev = torch.cat([e.last_pose.new_tensor([[0, 0, 0, 0, 0, 0, 1.0]]),
@@ -1435,8 +1531,9 @@ def phase_main(dev, smi):
         del e
     deltas = [tangent_distance(rel[True][i:i + 1], rel[False][i:i + 1])
               for i in range(T_WINDOW)]
-    require(max(deltas) < 2e-2, f"main: bf16-vs-f32 pose deltas {deltas}")
-    emit({"phase": "main", "card": smi, "shape": [H, W], "window": T_WINDOW,
+    require(max(deltas) < 2e-2, f"{what}: bf16-vs-f32 pose deltas {deltas}")
+    emit({"phase": what, "part": "f2f", "card": smi, "shape": [H, W],
+          "window": T_WINDOW, "small": small,
           "timed_windows": n_timed, "fps": fps, "seconds": dt,
           "success_rate": float(succ.float().mean()),
           "lm_iters": {"mean": float(it.float().mean()), "max": int(it.max()),
@@ -1444,7 +1541,7 @@ def phase_main(dev, smi):
           "launches": launches,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
           "bf16_vs_f32_pose_delta": deltas})
-    phase_profile(est, windows[0], masks)
+    phase_profile(est, windows[0], masks, what)
     return launches
 
 
@@ -1567,7 +1664,7 @@ def solve_span(prof, span, solves, earlier):
             "launches_per_solve": per, "earlier": earlier}
 
 
-def phase_profile(est, window, masks):
+def phase_profile(est, window, masks, what="main"):
     """One more main-path window under torch.profiler, by stage of
     PoseNet.infer_window."""
     prof = profile_run(lambda: est.track_window(window[0], window[1], masks),
@@ -1576,7 +1673,7 @@ def phase_profile(est, window, masks):
     # span's 86.60; before the one-launch LM solve the solve span held the
     # card 81.0-109.0 ms for 7.3 ms of kernels, 3,075 launches a window
     # (NVIDIA H100 80GB HBM3, 700 W)
-    emit({"phase": "profile", "window": T_WINDOW, **prof,
+    emit({"phase": "profile", "path": what, "window": T_WINDOW, **prof,
           "k1_in_window": k1_in_window(prof, {"flow_span_k1_ms": 43.91}),
           "solve_span": solve_span(prof, "infer_window.solve", 1, {
               "device_ms": [81.0, 109.0], "kernel_ms": 7.3, "launches": 3075})})
@@ -1694,9 +1791,65 @@ def zero_launch_counts():
     SOLVE_CALLS[0] = 0
 
 
-def phase_train_slice(dev):
+def replay_dropout(record):
+    """Patch the port's dropout draw: with ``record`` a list, record every
+    keep mask drawn (the card's run); with ``record`` a list of masks, hand
+    them out again in order on the device asked for (the CPU run), so both
+    runs drop the same channels. Returns the undo."""
+    from robust_pose_tpu_torch.models import raft as raft_mod
+
+    draw = raft_mod.dropout_keep
+    replay = list(record)
+
+    def keep(batch, channels, p, generator):
+        if replay:
+            return replay.pop(0).to(generator.device)
+        k = draw(batch, channels, p, generator)
+        record.append(k.cpu())
+        return k
+
+    raft_mod.dropout_keep = keep
+    return lambda: setattr(raft_mod, "dropout_keep", draw)
+
+
+def dropout_mask_check(dev, model, images, p):
+    """On the card, each encoder of ``model`` (small, f32) with a keep mask
+    against itself without one: every (sample, channel) of the output is
+    all zero or the eval output times 1 / (1 - p) (rtol 1e-6); and the
+    kept share of the masks drawn lies within 4 binomial standard
+    deviations of 1 - p. Returns the kept shares."""
+    import torch
+
+    from robust_pose_tpu_torch.models import raft as raft_mod
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    shares = {}
+    with torch.no_grad():
+        x = model.flow._prep(images)
+        for name in ("fnet", "cnet"):
+            net = getattr(model.flow, name)
+            keep = raft_mod.dropout_keep(x.shape[0], net.conv2.out_channels, p, g)
+            ref, out = net(x).float(), net(x, keep).float()
+            k = keep.expand_as(out)
+            dropped_ok = bool((out[~k] == 0).all())
+            err = float(((out - ref / (1.0 - p)).abs()
+                         / (ref.abs() / (1.0 - p) + 1e-6))[k].max())
+            share = float(keep.float().mean())
+            n = keep.numel()
+            require(dropped_ok and err <= 1e-6
+                    and abs(share - (1 - p)) <= 4 * np.sqrt(p * (1 - p) / n),
+                    f"dropout {name}: dropped zero {dropped_ok}, kept rel err "
+                    f"{err}, share {share} of {n}")
+            shares[name] = share
+    return shares
+
+
+def phase_train_slice(dev, small=False):
     """One live-RAFT training step (lane-wise lookup) at 64x96 in f32 on
-    the card and on the CPU from the same weights and batch. Loss rtol
+    the card and on the CPU from the same weights and batch; ``small``:
+    RAFT's small variant (K4/K5 at radius 3) with remat and remat_policy
+    "dots" and dropout 0.1, the CPU run replaying the card's dropout masks
+    (the training half of phase small_slice). Loss rtol
     1e-4; every gradient within 5e-3 of its leaf's norm in L2 and within
     5e-2 of its leaf's largest element (a pixel whose depth validity or
     flow bound sits on a threshold can fall on either side on the two
@@ -1712,6 +1865,9 @@ def phase_train_slice(dev):
     model_cfg = {"iters": 2, "lbgfs_iters": 50, "use_weights": True,
                  "mixed_precision": False, "unet_levels": 1, "dropout": 0.0,
                  "lookup": "lanewise"}
+    if small:
+        model_cfg.update(small=True, dropout=0.1, remat=True,
+                         remat_policy="dots")
     cfg = {"model": model_cfg, "image_shape": [h, w],
            "train": {"learning_rate": lr, "weight_decay": 5e-5,
                      "epsilon": 1e-8, "grad_clip": 1.0, "freeze_flow_steps": 0}}
@@ -1726,12 +1882,17 @@ def phase_train_slice(dev):
     batch = (img(), img(), img(), img(), mask, mask, gt, K,
              np.ones((b,), np.float32))
     res = {}
+    masks = []
     for where in ("cuda", "cpu"):
         tr = PoseNetTrainer(cfg, device=dev if where == "cuda" else "cpu")
         st = tr.init_state(sd)
         seen = spy_grads(tr)
         zero_launch_counts()
-        st, m = tr.train_step(st, batch)
+        undo = replay_dropout(masks if where == "cuda" else list(masks))
+        try:
+            st, m = tr.train_step(st, batch)
+        finally:
+            undo()
         res[where] = {"loss": float(m["train/loss_total"]),
                       "grad_norm": float(m["train/grad_norm"]),
                       "grads": seen[0], "launches": launch_counts(),
@@ -1771,7 +1932,14 @@ def phase_train_slice(dev):
             and lc["normal_eq"] == 0 and c["solves"] == 1
             and lc["corr_window_lookup"] == 0, f"train_slice: launches {lc}")
     require(not any(p["launches"].values()), f"train_slice: CPU launches")
-    emit({"phase": "train_slice", "shape": [h, w], "batch": b,
+    extra = {}
+    if small:
+        require(len(masks) == 2, f"train_slice: {len(masks)} dropout masks drawn")
+        extra["dropout_keep_share"] = dropout_mask_check(
+            dev, PoseNetTrainer(cfg, device=dev).model,
+            torch.from_numpy(batch[0]).permute(0, 2, 3, 1).to(dev), 0.1)
+    emit({"phase": "small_slice" if small else "train_slice", "part": "train",
+          "model": model_cfg, **extra, "shape": [h, w], "batch": b,
           "loss_cuda": c["loss"], "loss_cpu": p["loss"],
           "grad_norm_cuda": c["grad_norm"], "grad_norm_cpu": p["grad_norm"],
           "worst_error_over_tolerance": worst, "launches_cuda": lc})
@@ -1811,106 +1979,292 @@ def phase_train(dev, smi):
     and RAFT's gradients also pass through the flow deltas."""
     import copy
 
-    import torch
-
-    from robust_pose_tpu_torch.models.posenet import PoseNet
-    from robust_pose_tpu_torch.train.trainer import PoseNetTrainer
-
-    y = read_yaml("configuration/train.yaml")
-    require(y["train"]["batch_size"] == TRAIN_BATCH
-            and tuple(y["image_shape"]) == (H, W), "train.yaml changed")
-    base = {"model": dict(y["model"]), "image_shape": y["image_shape"],
-            "train": dict(y["train"])}
+    base = train_yaml()
     cfg_a = copy.deepcopy(base)
     cfg_a["train"]["stop_flow_grad"] = True
     cfg_b = copy.deepcopy(base)
     cfg_b["train"]["freeze_flow_steps"] = 0
     cfg_b["model"]["lookup"] = "lanewise"
-    iters = base["model"]["iters"]
-    m = PoseNet(dict(base["model"], image_shape=(H, W)), device="cpu")
+    sd = train_weights_full(base["model"])
+    batch = train_batch_full(dev)
+    return {name: train_run(dev, smi, "train", name, cfg, sd, batch, live)
+            for name, cfg, live in (("a", cfg_a, False), ("b", cfg_b, True))}
+
+
+def train_yaml():
+    """configuration/train.yaml as the trainer's config (model, train,
+    image_shape)."""
+    y = read_yaml("configuration/train.yaml")
+    require(y["train"]["batch_size"] == TRAIN_BATCH
+            and tuple(y["image_shape"]) == (H, W), "train.yaml changed")
+    return {"model": dict(y["model"]), "image_shape": y["image_shape"],
+            "train": dict(y["train"])}
+
+
+def train_weights_full(model_cfg):
+    """Random seeded full-width weights for ``model_cfg``, the flow head
+    biased as bench.py does and its kernel damped x0.1, so depth is valid
+    and RAFT's gradients also pass through the flow deltas."""
+    import torch
+
+    from robust_pose_tpu_torch.models.posenet import PoseNet
+
+    m = PoseNet(dict(model_cfg, image_shape=(H, W)), device="cpu")
     m.reset_parameters(torch.Generator().manual_seed(0))
     fh = m.flow.update["update_block"].flow_head.conv2
     with torch.no_grad():
         fh.weight.mul_(0.1)
-        fh.bias.copy_(torch.tensor([-8.0 / (8.0 * iters), 0.0]))
-    sd = m.state_dict()
-    del m
+        fh.bias.copy_(torch.tensor([-8.0 / (8.0 * model_cfg["iters"]), 0.0]))
+    return m.state_dict()
+
+
+# ---------------------------------------------------------------------------
+# phases small_slice, small, checkpoints
+# ---------------------------------------------------------------------------
+
+def phase_small(dev, smi):
+    """RAFT's small variant at full width: f2f windows (configuration/
+    infer_f2f.yaml with small: True; K1 at radius 3 on 128 channels, K2 at
+    32/64/96) with success 1.0 and the bf16-vs-f32 gate, then the training
+    step (configuration/train.yaml with small: True, batch 8, RAFT live
+    through the lane-wise lookup, K4/K5 at radius 3, remat, dropout 0.1)
+    with remat_policy "dots" and, for its peak memory beside it,
+    "nothing". Returns the launches of the f2f windows and of the "dots"
+    steps."""
+    import copy
+
+    f2f = phase_main(dev, smi, small=True)
+    base = train_yaml()
+    base["model"].update(small=True, dropout=0.1, remat=True,
+                         lookup="lanewise")
+    base["train"]["freeze_flow_steps"] = 0
+    sd = train_weights_full(base["model"])
     batch = train_batch_full(dev)
-    results = {}
-    for name, cfg in (("a", cfg_a), ("b", cfg_b)):
+    train = {}
+    for policy in ("dots", "nothing"):
+        cfg = copy.deepcopy(base)
+        cfg["model"]["remat_policy"] = policy
+        train[policy] = train_run(dev, smi, "small_train", policy, cfg, sd,
+                                  batch, True)
+    return f2f, train["dots"]
+
+
+def phase_checkpoints(dev, model_cfg, sd, slam, K, frames):
+    """Checkpoints on the card, RAFT small at 64x96 in f32:
+    (1) save_checkpoint / load_checkpoint_any of the weights of phase
+    small_slice: a PoseEstimator built from the loaded bundle tracks the
+    same frames to the same poses, bit for bit (the same kernels on the
+    same inputs: no atomics on the inference path);
+    (2) a training run (small, RAFT live, lane-wise, remat "dots", dropout
+    0.1): step 1, save_train_state, step 2; a fresh trainer from
+    load_train_state takes step 2 again. Its step, count, loss and
+    dropout masks equal the uninterrupted run's; its parameters within
+    2 lr everywhere and 1e-3 lr where the gradient is above 1e-3 of its
+    leaf's largest (plus 1e-4 of the largest of all leaves), Adam's
+    moments within 1e-4 of their leaf's largest (plus 1e-6 of all leaves').
+    The bits are printed but not required: the backward of the bilinear
+    upsampling (torch's upsample_bilinear2d_backward, in the small
+    variant's flow and the TinyUNet heads) adds with atomics, so two runs
+    of the same step differ in their last bits on the card (with
+    deterministic algorithms torch refuses that backward)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from robust_pose_tpu_torch.slam.pose_estimator import PoseEstimator
+    from robust_pose_tpu_torch.train.trainer import PoseNetTrainer
+    from robust_pose_tpu_torch.utils.checkpoints import (
+        load_checkpoint_any,
+        load_train_state,
+        save_checkpoint,
+        save_train_state,
+    )
+
+    h, w = model_cfg["image_shape"]
+    ls, rs, mask = frames
+    out = {}
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        save_checkpoint(tmp, sd, {"model": model_cfg})
+        poses = []
+        for ckpt in ({"state_dict": sd, "config": {"model": model_cfg}},
+                     load_checkpoint_any(tmp)):
+            est = PoseEstimator(slam, K, 250.0, ckpt, (w, h), device=dev)
+            est(ls[0], rs[0], mask)
+            p, _ = est.track_window(ls[1:3], rs[1:3], np.stack([mask] * 2))
+            poses.append(p.cpu())
+        require(same_bits([poses[0]], [poses[1]]),
+                "checkpoints: the reloaded estimator's poses differ")
+        out["estimator_poses_bit_equal"] = True
+
+        lr = 1e-4
+        cfg = {"model": {k: v for k, v in model_cfg.items() if k != "image_shape"},
+               "image_shape": [h, w],
+               "train": {"learning_rate": lr, "weight_decay": 5e-5,
+                         "epsilon": 1e-8, "grad_clip": 1.0, "freeze_flow_steps": 0}}
+        cfg["model"].update(lookup="lanewise", remat=True, remat_policy="dots",
+                            dropout=0.1, lbgfs_iters=50)
+        rng = np.random.default_rng(4)
+        b = 2
+        img = lambda: rng.uniform(0, 255, (b, 3, h, w)).astype(np.float32)
+        gt = np.zeros((b, 7), np.float32)
+        gt[:, 6], gt[:, 0] = 1.0, 0.01
+        Kb = np.tile(np.float32(K), (b, 1, 1))
+        m = np.ones((b, 1, h, w), bool)
+        batches = [(img(), img(), img(), img(), m, m, gt, Kb,
+                    np.ones((b,), np.float32)) for _ in range(2)]
         tr = PoseNetTrainer(cfg, device=dev)
         st = tr.init_state(sd)
-        flow0 = {k: v.detach().clone() for k, v in st.params.items()
-                 if k.startswith("flow.")}
-        st, _ = tr.train_step(st, batch)                        # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        zero_launch_counts()
-        t0 = time.perf_counter()
-        metrics = []
-        for _ in range(TRAIN_TIMED):
-            st, mt = tr.train_step(st, batch)
-            metrics.append(mt)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launches = launch_counts()
-        loss = [float(mt["train/loss_total"]) for mt in metrics]
-        gnorm = [float(mt["train/grad_norm"]) for mt in metrics]
-        it = tr.last_solver_iters.cpu()
-        moved = [k for k, v in flow0.items()
-                 if not torch.equal(st.params[k].detach(), v)]
-        per_step = {k: v / TRAIN_TIMED for k, v in launches.items()}
-        require(all(np.isfinite(loss)) and all(np.isfinite(gnorm)),
-                f"train {name}: loss {loss}, grad norm {gnorm}")
-        require(min(gnorm) > 0, f"train {name}: zero gradient norm {gnorm}")
-        one_solve_a_call(launches, f"train {name}")
-        require(per_step["lm_solve"] == 1 and per_step["instance_norm_stats"] > 0,
-                f"train {name}: launches {launches}")
-        if name == "a":
-            require(per_step["lanewise_lookup"] == 0
-                    and per_step["lanewise_lookup_bwd"] == 0
-                    and per_step["corr_window_lookup"] == iters,
-                    f"train a: launches {launches}")
-            require(not moved, f"train a: RAFT parameters moved: {moved[:3]}")
-        else:
-            # one launch a 4-level lookup and one a backward; remat runs
-            # each GRU iteration's lookup again in the backward pass
-            require(per_step["lanewise_lookup_bwd"] == iters
-                    and per_step["lanewise_lookup"] >= iters
-                    and per_step["corr_window_lookup"] == 0,
-                    f"train b: launches {launches}")
-            require(len(moved) == len(flow0),
-                    f"train b: {len(flow0) - len(moved)} RAFT parameters still")
-        results[name] = launches
-        emit({"phase": "train", "config": name, "card": smi,
-              "shape": [H, W], "batch": TRAIN_BATCH,
-              "model": {k: tr.model.config.get(k, True) for k in
-                        ("iters", "lbgfs_iters", "stop_flow_grad", "remat",
-                         "lookup", "mixed_precision", "use_weights")},
-              "timed_steps": TRAIN_TIMED, "step_s": dt / TRAIN_TIMED,
-              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-              "loss_total": loss, "grad_norm": gnorm,
-              "launches_per_step": per_step,
-              "lm_iters": {"mean": float(it.float().mean()), "max": int(it.max()),
-                           "min": int(it.min())},
-              "raft_params_moved": len(moved), "raft_params": len(flow0)})
-        prof = profile_run(lambda: tr.train_step(st, batch), "train_step.")
-        if name == "b" and "group_ms" in prof:
-            # the lane-wise lookup's share of the profiled step; before the
-            # pyramid kernels (96 K4 and 48 K5 launches a step, a memset
-            # before each K5) K4 took 4.71 ms and K5 9.44 ms without its
-            # memsets (NVIDIA H100 80GB HBM3, 700 W)
-            prof["lanewise_in_step_ms"] = {
-                "K4": prof["group_ms"].get("lanewise_lookup (K4)", 0.0),
-                "K5": prof["group_ms"].get("lanewise_lookup_bwd (K5)", 0.0),
-                "memsets": prof["group_ms"].get("memsets", 0.0),
-                "earlier": {"K4": 4.71, "K5": 9.44}}
-        if name == "a":
-            prof["k1_in_step"] = k1_in_window(prof)
-        emit({"phase": "train_profile", "config": name, **prof})
-        del tr, st, flow0
-        torch.cuda.empty_cache()
-    return results
+        st, _ = tr.train_step(st, batches[0])
+        save_train_state(tmp, st)
+        runs = []
+        for resumed in (False, True):
+            if resumed:
+                tr = PoseNetTrainer(cfg, device=dev)
+                st = tr.init_state(load_train_state(tmp))
+                require(st.step == 1 and st.opt_state.count == 1,
+                        "checkpoints: step and count not restored")
+            seen = spy_grads(tr)
+            masks = []
+            undo = replay_dropout(masks)
+            try:
+                st, mt = tr.train_step(st, batches[1])
+            finally:
+                undo()
+            runs.append({"loss": mt["train/loss_total"].cpu(), "masks": masks,
+                         "grads": seen[0], "step": st.step,
+                         "count": st.opt_state.count,
+                         "params": {k: v.detach().cpu().clone()
+                                    for k, v in st.params.items()},
+                         "mu": {k: v.cpu() for k, v in st.opt_state.mu.items()},
+                         "nu": {k: v.cpu() for k, v in st.opt_state.nu.items()}})
+    a, r = runs
+    require(a["step"] == r["step"] == 2 and a["count"] == r["count"] == 2,
+            "checkpoints: step or count after the resumed step")
+    require(len(a["masks"]) == 2 and all(torch.equal(x, y) for x, y in
+                                          zip(a["masks"], r["masks"])),
+            "checkpoints: the resumed step drew other dropout masks")
+    loss_rel = float((a["loss"] - r["loss"]).abs() / a["loss"].abs())
+    require(loss_rel <= 1e-5, f"checkpoints: loss differs by {loss_rel}")
+    # per leaf, relative to the leaf's own scale plus a floor relative to
+    # the largest of all leaves: a leaf whose gradient is rounding noise
+    # (a bias that an instance norm cancels) has noise for moments, and
+    # Adam moves its elements by ~lr * sign(noise)
+    gmax = max(float(g.abs().max()) for g in a["grads"].values() if g is not None)
+    mmax = {m: max(float(v.abs().max()) for v in a[m].values()) for m in ("mu", "nu")}
+    worst = {"param_over_tol": 0.0, "moment_over_tol": 0.0}
+    where = {}
+    bits = True
+    for k, g in a["grads"].items():
+        pa, pr = a["params"][k], r["params"][k]
+        bits = bits and torch.equal(pa, pr)
+        d = (pa - pr).abs()
+        require(float(d.max()) <= 2 * lr, f"checkpoints: parameter {k}")
+        if g is not None:
+            big = g.abs() > 1e-3 * float(g.abs().max()) + 1e-4 * gmax
+            if bool(big.any()):
+                ratio = float(d[big].max()) / (1e-3 * lr)
+                if ratio > worst["param_over_tol"]:
+                    worst["param_over_tol"], where["param"] = ratio, k
+        for mom in ("mu", "nu"):
+            ma, mr = a[mom][k], r[mom][k]
+            tol = 1e-4 * float(ma.abs().max()) + 1e-6 * mmax[mom]
+            ratio = float((ma - mr).abs().max()) / tol
+            if ratio > worst["moment_over_tol"]:
+                worst["moment_over_tol"], where["moment"] = ratio, f"{mom} {k}"
+    require(worst["param_over_tol"] <= 1.0 and worst["moment_over_tol"] <= 1.0,
+            f"checkpoints: resumed step 2 off the uninterrupted one: {worst} "
+            f"at {where}")
+    emit({"phase": "checkpoints", "shape": [h, w], **out,
+          "resume": {"loss_rel_diff": loss_rel, "params_bit_equal": bits,
+                     "worst_error_over_tolerance": worst, "worst_at": where}})
+
+
+def train_run(dev, smi, phase, name, cfg, sd, batch, live):
+    """One training configuration at full width: 1 warm-up and TRAIN_TIMED
+    timed steps with the launch counters set to 0 just before and read just
+    after, then one step under torch.profiler. ``live``: RAFT's gradients
+    flow (through the lane-wise lookup), else RAFT is frozen and cut off.
+    Returns the launch counts of the timed steps."""
+    import torch
+
+    from robust_pose_tpu_torch.train.trainer import PoseNetTrainer
+
+    iters = cfg["model"]["iters"]
+    tr = PoseNetTrainer(cfg, device=dev)
+    st = tr.init_state(sd)
+    flow0 = {k: v.detach().clone() for k, v in st.params.items()
+             if k.startswith("flow.")}
+    st, _ = tr.train_step(st, batch)                        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(TRAIN_TIMED):
+        st, mt = tr.train_step(st, batch)
+        metrics.append(mt)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    loss = [float(mt["train/loss_total"]) for mt in metrics]
+    gnorm = [float(mt["train/grad_norm"]) for mt in metrics]
+    it = tr.last_solver_iters.cpu()
+    moved = [k for k, v in flow0.items()
+             if not torch.equal(st.params[k].detach(), v)]
+    per_step = {k: v / TRAIN_TIMED for k, v in launches.items()}
+    what = f"{phase} {name}"
+    require(all(np.isfinite(loss)) and all(np.isfinite(gnorm)),
+            f"{what}: loss {loss}, grad norm {gnorm}")
+    require(min(gnorm) > 0, f"{what}: zero gradient norm {gnorm}")
+    one_solve_a_call(launches, what)
+    require(per_step["lm_solve"] == 1 and per_step["instance_norm_stats"] > 0,
+            f"{what}: launches {launches}")
+    if not live:
+        require(per_step["lanewise_lookup"] == 0
+                and per_step["lanewise_lookup_bwd"] == 0
+                and per_step["corr_window_lookup"] == iters,
+                f"{what}: launches {launches}")
+        require(not moved, f"{what}: RAFT parameters moved: {moved[:3]}")
+    else:
+        # one launch a 4-level lookup and one a backward; remat runs
+        # each GRU iteration's lookup again in the backward pass
+        require(per_step["lanewise_lookup_bwd"] == iters
+                and per_step["lanewise_lookup"] >= iters
+                and per_step["corr_window_lookup"] == 0,
+                f"{what}: launches {launches}")
+        require(len(moved) == len(flow0),
+                f"{what}: {len(flow0) - len(moved)} RAFT parameters still")
+    emit({"phase": phase, "config": name, "card": smi,
+          "shape": [H, W], "batch": TRAIN_BATCH,
+          "model": {k: tr.model.config.get(k, True) for k in
+                    ("iters", "lbgfs_iters", "stop_flow_grad", "remat",
+                     "remat_policy", "small", "dropout", "lookup",
+                     "mixed_precision", "use_weights")},
+          "timed_steps": TRAIN_TIMED, "step_s": dt / TRAIN_TIMED,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "loss_total": loss, "grad_norm": gnorm,
+          "launches_per_step": per_step,
+          "lm_iters": {"mean": float(it.float().mean()), "max": int(it.max()),
+                       "min": int(it.min())},
+          "raft_params_moved": len(moved), "raft_params": len(flow0)})
+    prof = profile_run(lambda: tr.train_step(st, batch), "train_step.")
+    if live and "group_ms" in prof:
+        # the lane-wise lookup's share of the profiled step; before the
+        # pyramid kernels (96 K4 and 48 K5 launches a step, a memset
+        # before each K5) K4 took 4.71 ms and K5 9.44 ms without its
+        # memsets in train b (NVIDIA H100 80GB HBM3, 700 W)
+        prof["lanewise_in_step_ms"] = {
+            "K4": prof["group_ms"].get("lanewise_lookup (K4)", 0.0),
+            "K5": prof["group_ms"].get("lanewise_lookup_bwd (K5)", 0.0),
+            "memsets": prof["group_ms"].get("memsets", 0.0),
+            "earlier": {"K4": 4.71, "K5": 9.44} if phase == "train" else None}
+    if not live:
+        prof["k1_in_step"] = k1_in_window(prof)
+    emit({"phase": phase + "_profile", "config": name, **prof})
+    del tr, st, flow0
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2253,14 +2607,25 @@ def main():
     train = phase_train(dev, smi)
     phase_f2m_slice(dev)
     _, f2m_grouped = phase_f2m(dev, smi)
+    small_case = phase_slice(dev, small=True)
+    phase_train_slice(dev, small=True)
+    small_f2f, small_train = phase_small(dev, smi)
+    phase_checkpoints(dev, *small_case)
     # each kernel's launches on its own path: K1-K3 in the f2f main path
     # (K3: the LM solve kernel, one launch a window, every build inside),
     # K4-K5 in the training step with live RAFT, K7 in the f2m window with
-    # lookup "grouped"; K6 has no path (none in the JAX package either)
+    # lookup "grouped"; K6 has no path (none in the JAX package either);
+    # RAFT small's K1 (radius 3) and K2 (its widths) in its f2f windows,
+    # its K4-K5 (radius 3) in its training step ("dots")
     launches["normal_eq"] = launches["lm_solve"]
     launches.update({k: train["b"][k] for k in ("lanewise_lookup",
                                                  "lanewise_lookup_bwd")})
     launches.update(pixel_lookup=0, grouped_lookup=f2m_grouped["grouped_lookup"])
+    launches.update(
+        corr_window_lookup_r3=small_f2f["corr_window_lookup"],
+        instance_norm_stats_small=small_f2f["instance_norm_stats"],
+        lanewise_lookup_r3=small_train["lanewise_lookup"],
+        lanewise_lookup_bwd_r3=small_train["lanewise_lookup_bwd"])
     for k in kernels:
         k["launches"] = launches[k["name"]]
     emit({"kernels": [{key: k[key] for key in (

@@ -10,15 +10,16 @@
 // What they compute, per (batch b, query n, level l): the sample centre
 // c = coords[b, n] * s_l in level pixels (s_l = s_0 2^-l), x0 = floor(c.x),
 // y0 = floor(c.y), wx = c.x - x0, wy = c.y - y0, and for the D x D window
-// (D = 2r + 1 = 9) the bilinear sample of the volume corr_l[b, :, :, n]
-// (B, Hl, Wl, N), N minor, (Hl, Wl) = (H0 >> l, W0 >> l), separably: rows
+// (D = 2r + 1: r = 4 for RAFT large, 3 for RAFT small, a template
+// parameter of every kernel) the bilinear sample of the volume
+// corr_l[b, :, :, n] (B, Hl, Wl, N), N minor, (Hl, Wl) = (H0 >> l, W0 >> l), separably: rows
 // first, A[i][j'] = (1-wy) T[i][j'] + wy T[i+1][j'], then columns,
 // out[i][j] = (1-wx) A[i][j] + wx A[i][j+1], over the (D+1) x (D+1) taps
 // T[i][j'] = corr_l[b, y0-r+i, x0-r+j', n]. A tap row or column outside
 // [0, Hl) x [0, Wl) carries weight zero (the Pallas kernel's iota match never
 // hits it; grid_sample's zero padding, partial corners included). Output
-// (B, L*81, N) f32, level l at channels 81 l .. 81 l + 80, dy-major. The
-// backward takes the cotangent g of that buffer and returns dcorr_l
+// (B, L*D*D, N) f32, level l at channels D*D l .. D*D (l + 1) - 1, dy-major.
+// The backward takes the cotangent g of that buffer and returns dcorr_l
 // (B, Hl, Wl, N) in the volume's dtype for every level and dcoords (B, N, 2)
 // = sum over l of [dcx_l, dcy_l] s_l, with the Pallas backward's formulas.
 //
@@ -37,7 +38,7 @@
 //   (bf16) of one position each, and a piece is fetched only where one of its
 //   queries has the position in its window: the sectors asked for are the ones
 //   the windows cover, once, with no instruction a tap. Each lane then copies
-//   its 10 taps of the row to a table tab[tap][query] (the query is the
+//   its P = D + 1 taps of the row to a table tab[tap][query] (the query is the
 //   bank); lanes whose centres differ in y are at different tap rows of their
 //   own windows meanwhile. What this cannot avoid is the layout's grain: the
 //   taps of one window lie N elements apart, so every sector comes from
@@ -61,7 +62,7 @@
 //   sectors. Per level (a loop in the block, so that dcoords sums in level
 //   order in registers and the result does not depend on scheduling): the
 //   taps are gathered as in K4; each thread computes its query's dcx, dcy and
-//   the 10 x 10 tap cotangents wy gx[i-1][j] + (1-wy) gx[i][j], which
+//   the P x P tap cotangents wy gx[i-1][j] + (1-wy) gx[i][j], which
 //   overwrite the taps in the table, already rounded to the volume's dtype;
 //   then the block sweeps its slab. Rows that no window of the block touches
 //   are zeros written 16 bytes a thread with no arithmetic; on the others a
@@ -83,11 +84,6 @@
 
 namespace {
 
-constexpr int R = 4;
-constexpr int D = 2 * R + 1;   // 9
-constexpr int P = D + 1;       // 10 tap rows and columns
-constexpr int TAPS = P * P;    // 100
-constexpr int E = D * D;       // 81 window entries
 constexpr int MAX_LEVELS = 4;
 constexpr int QB = 64;         // queries (= threads) a block
 constexpr int WARPS = QB / 32;
@@ -95,9 +91,19 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int FAR = 1 << 29;   // a window origin that no position matches
 constexpr int CW = 48;         // columns a staged chunk of a volume row
 constexpr int NBUF = 2;        // staged chunks a warp: one in use, the rest in flight
-// a block's shared memory: the table, then every warp's staging (25 KB in
-// bf16, 50 KB in f32)
-constexpr size_t SHARED_ELEMS = (size_t)TAPS * QB + (size_t)WARPS * NBUF * CW * 32;
+
+// The window's sizes at radius R (4: RAFT large, 3: RAFT small)
+template <int R>
+struct Win {
+  static constexpr int D = 2 * R + 1;    // outputs a window row: 9 or 7
+  static constexpr int P = D + 1;        // tap rows and columns: 10 or 8
+  static constexpr int TAPS = P * P;
+  static constexpr int E = D * D;        // window entries: 81 or 49
+  // a block's shared memory: the table, then every warp's staging (25 KB in
+  // bf16 and 50 KB in f32 at R = 4; 20 and 40 KB at R = 3)
+  static constexpr size_t SHARED_ELEMS =
+      (size_t)TAPS * QB + (size_t)WARPS * NBUF * CW * 32;
+};
 
 // level l is (H0 >> l, W0 >> l), read at coords * s_0 2^-l
 struct Levels {
@@ -156,9 +162,11 @@ struct Window {
 // the window of query q (coords (B N, 2)) at a level Hl x Wl; ``valid``
 // false: a thread past the last query. A window that misses the level, or a
 // centre that is NaN or huge, has no in-level part.
+template <int R>
 __device__ __forceinline__ Window window(const float* __restrict__ coords,
                                          size_t q, bool valid, float inv_scale,
                                          int Hl, int Wl) {
+  constexpr int P = Win<R>::P;
   Window w;
   float cx = 0.f, cy = 0.f;
   if (valid) {
@@ -198,7 +206,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // windows touch, top to bottom, and each row in chunks of CW columns of the
 // in-level columns X0..X1 that any of the windows needs. A chunk is staged in
 // shared memory, stage[position][query], and each lane then copies those of
-// its own 10 taps of the row that lie in it; lane k is at its tap row
+// its own P taps of the row that lie in it; lane k is at its tap row
 // y - yb_k, so the lanes run one row apart where their centres differ.
 // VEC > 1: the staging loads are asynchronous 16-byte copies of VEC
 // consecutive queries (N a multiple of VEC, the volume 16-byte aligned),
@@ -208,11 +216,12 @@ __device__ __forceinline__ void cp_async_wait() {
 // query's elements. NBUF - 1 chunks are in flight while one is copied.
 // ``stage``: NBUF * CW * 32 elements of this warp's; ``slab``:
 // corr_l[b, 0, 0, n0] of the warp's first query; nq of its queries exist.
-template <typename T, int VEC>
+template <int R, typename T, int VEC>
 __device__ __forceinline__ void gather_taps(T* stage, const T* __restrict__ slab,
                                             int N, int Hl, int Wl,
                                             const Window& w, bool valid, int nq,
                                             unsigned colok, T* tcol) {
+  constexpr int P = Win<R>::P;
   const int lane = threadIdx.x & 31;
   const bool hit = w.xlo <= w.xhi;
   const int X0 = __reduce_min_sync(FULL, w.xlo);
@@ -290,27 +299,31 @@ __device__ __forceinline__ void gather_taps(T* stage, const T* __restrict__ slab
 }
 
 // which tap columns lie in the level, tested in float: bit j
+template <int R>
 __device__ __forceinline__ unsigned columns_in_level(const Window& w, int Wl) {
   unsigned m = 0u;
 #pragma unroll
-  for (int j = 0; j < P; ++j) {
+  for (int j = 0; j < Win<R>::P; ++j) {
     const float xx = w.x0 - R + j;
     m |= (xx >= 0.f && xx < (float)Wl) ? 1u << j : 0u;
   }
   return m;
 }
 
+template <int R>
 __device__ __forceinline__ bool row_in_level(const Window& w, int Hl, int i) {
   const float yy = w.y0 - R + i;
   return yy >= 0.f && yy < (float)Hl;
 }
 
-// K4: grid (ceil(N / QB), B, L); out (B, L*81, N) f32; dynamic shared memory:
-// SHARED_ELEMS elements, the table, then every warp's staging
-template <typename T, int VEC>
+// K4: grid (ceil(N / QB), B, L); out (B, L*D*D, N) f32; dynamic shared
+// memory: Win<R>::SHARED_ELEMS elements, the table, then every warp's staging
+template <int R, typename T, int VEC>
 __global__ void __launch_bounds__(QB, 8)
 lanewise_fwd_kernel(Levels lv, const float* __restrict__ coords,
                     float* __restrict__ out, int N, int L, float inv_scale0) {
+  constexpr int D = Win<R>::D, P = Win<R>::P, TAPS = Win<R>::TAPS,
+                E = Win<R>::E;
   extern __shared__ __align__(16) unsigned char shared_raw[];
   T* tab = reinterpret_cast<T*>(shared_raw);
   const int l = blockIdx.z, b = blockIdx.y;
@@ -319,11 +332,11 @@ lanewise_fwd_kernel(Levels lv, const float* __restrict__ coords,
   const int n0 = blockIdx.x * QB + warp * 32;
   const int n = blockIdx.x * QB + threadIdx.x;
   const bool valid = n < N;
-  const Window w = window(coords, (size_t)b * N + n, valid,
-                          inv_scale0 / (float)(1 << l), Hl, Wl);
-  const unsigned colok = columns_in_level(w, Wl);
+  const Window w = window<R>(coords, (size_t)b * N + n, valid,
+                             inv_scale0 / (float)(1 << l), Hl, Wl);
+  const unsigned colok = columns_in_level<R>(w, Wl);
   T* tcol = tab + threadIdx.x;
-  gather_taps<T, VEC>(
+  gather_taps<R, T, VEC>(
       tab + TAPS * QB + warp * NBUF * CW * 32,
       corr_ptr<T>(lv, l) + (size_t)b * Hl * Wl * N + n0, N, Hl, Wl, w, valid,
       min(32, N - n0), colok, tcol);
@@ -340,12 +353,12 @@ lanewise_fwd_kernel(Levels lv, const float* __restrict__ coords,
   float prev[P], cur[P];
 #pragma unroll
   for (int j = 0; j < P; ++j) prev[j] = to_f32(tcol[j * QB]);
-  bool prev_ok = row_in_level(w, Hl, 0);
+  bool prev_ok = row_in_level<R>(w, Hl, 0);
 #pragma unroll
   for (int i = 1; i < P; ++i) {
 #pragma unroll
     for (int j = 0; j < P; ++j) cur[j] = to_f32(tcol[(i * P + j) * QB]);
-    const bool ok = row_in_level(w, Hl, i);
+    const bool ok = row_in_level<R>(w, Hl, i);
     const float w0 = prev_ok ? 1.f - w.wy : 0.f;
     const float w1 = ok ? w.wy : 0.f;
     float A[P];
@@ -370,14 +383,15 @@ lanewise_fwd_kernel(Levels lv, const float* __restrict__ coords,
 // (T[i] - T[i-1]) gx[i-1] and dcx sums A[i-1] gxp[i-1] over the in-level
 // columns, A the row blend of the forward; [dcx, dcy] * inv_scale is added
 // to (sum_x, sum_y). The order of the sums is fixed.
-template <typename T>
+template <int R, typename T>
 __device__ __forceinline__ void cotangents(T* tcol, const float* __restrict__ g_q,
                                            int N, const Window& w, int Hl,
                                            unsigned colok, float inv_scale,
                                            float& sum_x, float& sum_y) {
+  constexpr int D = Win<R>::D, P = Win<R>::P;
   unsigned rowok = 0u;
 #pragma unroll
-  for (int i = 0; i < P; ++i) rowok |= row_in_level(w, Hl, i) ? 1u << i : 0u;
+  for (int i = 0; i < P; ++i) rowok |= row_in_level<R>(w, Hl, i) ? 1u << i : 0u;
   float dcx = 0.f, dcy = 0.f;
   float lo[D], hi[D], next[D];   // g[.][j-1], g[.][j], g[.][j+1]
 #pragma unroll
@@ -430,11 +444,12 @@ __device__ __forceinline__ void cotangents(T* tcol, const float* __restrict__ g_
 // a lane two queries (neighbours stored as one pair with PAIR, else lane and
 // lane + 32): tab[tap][query] where the position lies in the query's window
 // (origin xb, yb), else zero.
-template <typename T, bool PAIR>
+template <int R, typename T, bool PAIR>
 __device__ __forceinline__ void write_slab(T* __restrict__ slab, const T* tab,
                                            const int* xb, const int* yb, int Z0,
                                            int Z1, int N, int nq, int Hl, int Wl,
                                            bool vec16) {
+  constexpr int P = Win<R>::P;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (vec16) {
     constexpr int EG = 16 / (int)sizeof(T);   // elements a 16-byte piece
@@ -479,13 +494,14 @@ __device__ __forceinline__ void write_slab(T* __restrict__ slab, const T* tab,
   }
 }
 
-// K5: grid (ceil(N / QB), B); g (B, L*81, N) f32; dcorr_l (B, Hl, Wl, N),
+// K5: grid (ceil(N / QB), B); g (B, L*D*D, N) f32; dcorr_l (B, Hl, Wl, N),
 // every element written; dcoords (B, N, 2) f32; dynamic shared memory as K4
-template <typename T, bool PAIR, int VEC>
+template <int R, typename T, bool PAIR, int VEC>
 __global__ void __launch_bounds__(QB, 8)
 lanewise_bwd_kernel(Levels lv, const float* __restrict__ coords,
                     const float* __restrict__ g, float* __restrict__ dcoords,
                     int N, int L, float inv_scale0, int vec16) {
+  constexpr int TAPS = Win<R>::TAPS, E = Win<R>::E;
   extern __shared__ __align__(16) unsigned char shared_raw[];
   __shared__ int s_xb[QB], s_yb[QB], s_y0[WARPS], s_y1[WARPS];
   T* tab = reinterpret_cast<T*>(shared_raw);
@@ -500,7 +516,7 @@ lanewise_bwd_kernel(Levels lv, const float* __restrict__ coords,
     const int Hl = lv.H0 >> l, Wl = lv.W0 >> l;
     const float inv_scale = inv_scale0 / (float)(1 << l);
     __syncthreads();   // the level before has been written out of the table
-    const Window w = window(coords, q, valid, inv_scale, Hl, Wl);
+    const Window w = window<R>(coords, q, valid, inv_scale, Hl, Wl);
     s_xb[t] = w.xb;
     s_yb[t] = w.yb;
     const int Y0 = __reduce_min_sync(FULL, w.ylo);
@@ -509,12 +525,12 @@ lanewise_bwd_kernel(Levels lv, const float* __restrict__ coords,
       s_y0[warp] = Y0;
       s_y1[warp] = Y1;
     }
-    const unsigned colok = columns_in_level(w, Wl);
-    gather_taps<T, VEC>(
+    const unsigned colok = columns_in_level<R>(w, Wl);
+    gather_taps<R, T, VEC>(
         stage, corr_ptr<T>(lv, l) + (size_t)b * Hl * Wl * N + n0 + warp * 32,
         N, Hl, Wl, w, valid, min(32, N - n0 - warp * 32), colok, tcol);
     if (valid)
-      cotangents(tcol, g + ((size_t)(b * L + l) * E) * N + n, N, w, Hl, colok,
+      cotangents<R>(tcol, g + ((size_t)(b * L + l) * E) * N + n, N, w, Hl, colok,
                  inv_scale, dcx, dcy);
     __syncthreads();
     int Z0 = s_y0[0], Z1 = s_y1[0];
@@ -529,7 +545,7 @@ lanewise_bwd_kernel(Levels lv, const float* __restrict__ coords,
     } else {
       Z1 += 1;
     }
-    write_slab<T, PAIR>(dcorr_ptr<T>(lv, l) + (size_t)b * Hl * Wl * N + n0, tab,
+    write_slab<R, T, PAIR>(dcorr_ptr<T>(lv, l) + (size_t)b * Hl * Wl * N + n0, tab,
                         s_xb, s_yb, Z0, Z1, N, min(QB, N - n0), Hl, Wl,
                         vec16 != 0);
   }
@@ -539,9 +555,9 @@ lanewise_bwd_kernel(Levels lv, const float* __restrict__ coords,
   }
 }
 
-bool sizes_ok(int B, int N, int H0, int W0, int L, int radius) {
+bool sizes_ok(int B, int N, int H0, int W0, int L) {
   // queries and one level's positions are counted in int
-  return radius == R && B > 0 && N > 0 && L >= 1 && L <= MAX_LEVELS && H0 >= 0 &&
+  return B > 0 && N > 0 && L >= 1 && L <= MAX_LEVELS && H0 >= 0 &&
          W0 >= 0 && B <= 65535 && (int64_t)N + QB <= 0x7fffffffLL &&
          (int64_t)H0 * W0 <= 0x7fffffffLL;
 }
@@ -563,43 +579,43 @@ cudaError_t allow_shared(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <typename T, int VEC>
+template <int R, typename T, int VEC>
 int launch_fwd(const Levels& lv, const void* coords, void* out, int B, int N,
                int L, float inv_scale0, cudaStream_t s) {
-  const size_t shared = SHARED_ELEMS * sizeof(T);
-  const cudaError_t e = allow_shared(lanewise_fwd_kernel<T, VEC>, shared);
+  const size_t shared = Win<R>::SHARED_ELEMS * sizeof(T);
+  const cudaError_t e = allow_shared(lanewise_fwd_kernel<R, T, VEC>, shared);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)((N + QB - 1) / QB), (unsigned)B, (unsigned)L);
-  lanewise_fwd_kernel<T, VEC><<<grid, QB, shared, s>>>(
+  lanewise_fwd_kernel<R, T, VEC><<<grid, QB, shared, s>>>(
       lv, static_cast<const float*>(coords), static_cast<float*>(out), N, L,
       inv_scale0);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool PAIR, int VEC>
+template <int R, typename T, bool PAIR, int VEC>
 int launch_bwd(const Levels& lv, const void* coords, const void* g,
                void* dcoords, int B, int N, int L, float inv_scale0, int vec16,
                cudaStream_t s) {
-  const size_t shared = SHARED_ELEMS * sizeof(T);
-  const cudaError_t e = allow_shared(lanewise_bwd_kernel<T, PAIR, VEC>, shared);
+  const size_t shared = Win<R>::SHARED_ELEMS * sizeof(T);
+  const cudaError_t e = allow_shared(lanewise_bwd_kernel<R, T, PAIR, VEC>, shared);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)((N + QB - 1) / QB), (unsigned)B);
-  lanewise_bwd_kernel<T, PAIR, VEC><<<grid, QB, shared, s>>>(
+  lanewise_bwd_kernel<R, T, PAIR, VEC><<<grid, QB, shared, s>>>(
       lv, static_cast<const float*>(coords), static_cast<const float*>(g),
       static_cast<float*>(dcoords), N, L, inv_scale0, vec16);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <int R, typename T>
 int dispatch_fwd(const Levels& lv, const void* coords, void* out, int B, int N,
                  int L, float inv_scale0, cudaStream_t s) {
   constexpr int V = 16 / (int)sizeof(T);
   return aligned16<T>(const_cast<void* const*>(lv.corr), L, N)
-             ? launch_fwd<T, V>(lv, coords, out, B, N, L, inv_scale0, s)
-             : launch_fwd<T, 1>(lv, coords, out, B, N, L, inv_scale0, s);
+             ? launch_fwd<R, T, V>(lv, coords, out, B, N, L, inv_scale0, s)
+             : launch_fwd<R, T, 1>(lv, coords, out, B, N, L, inv_scale0, s);
 }
 
-template <typename T>
+template <int R, typename T>
 int dispatch_bwd(const Levels& lv, const void* coords, const void* g,
                  void* dcoords, int B, int N, int L, float inv_scale0,
                  cudaStream_t s) {
@@ -612,35 +628,55 @@ int dispatch_bwd(const Levels& lv, const void* coords, const void* g,
   for (int l = 0; l < L; ++l) low |= reinterpret_cast<uintptr_t>(lv.dcorr[l]);
   const bool pair = N % 2 == 0 && low % (2 * sizeof(T)) == 0;
   if (pair)
-    return in16 ? launch_bwd<T, true, V>(lv, coords, g, dcoords, B, N, L,
-                                         inv_scale0, out16, s)
-                : launch_bwd<T, true, 1>(lv, coords, g, dcoords, B, N, L,
-                                         inv_scale0, out16, s);
-  return in16 ? launch_bwd<T, false, V>(lv, coords, g, dcoords, B, N, L,
-                                        inv_scale0, 0, s)
-              : launch_bwd<T, false, 1>(lv, coords, g, dcoords, B, N, L,
-                                        inv_scale0, 0, s);
+    return in16 ? launch_bwd<R, T, true, V>(lv, coords, g, dcoords, B, N, L,
+                                            inv_scale0, out16, s)
+                : launch_bwd<R, T, true, 1>(lv, coords, g, dcoords, B, N, L,
+                                            inv_scale0, out16, s);
+  return in16 ? launch_bwd<R, T, false, V>(lv, coords, g, dcoords, B, N, L,
+                                           inv_scale0, 0, s)
+              : launch_bwd<R, T, false, 1>(lv, coords, g, dcoords, B, N, L,
+                                           inv_scale0, 0, s);
+}
+
+template <int R>
+int fwd_radius(const Levels& lv, const void* coords, void* out, int B, int N,
+               int L, float inv_scale0, int dtype, cudaStream_t s) {
+  return dtype == 1
+             ? dispatch_fwd<R, __nv_bfloat16>(lv, coords, out, B, N, L, inv_scale0, s)
+             : dispatch_fwd<R, float>(lv, coords, out, B, N, L, inv_scale0, s);
+}
+
+template <int R>
+int bwd_radius(const Levels& lv, const void* coords, const void* g,
+               void* dcoords, int B, int N, int L, float inv_scale0, int dtype,
+               cudaStream_t s) {
+  return dtype == 1
+             ? dispatch_bwd<R, __nv_bfloat16>(lv, coords, g, dcoords, B, N, L, inv_scale0, s)
+             : dispatch_bwd<R, float>(lv, coords, g, dcoords, B, N, L, inv_scale0, s);
 }
 
 }  // namespace
 
-// One launch for the L <= 4 levels of a pyramid, radius 4 (RAFT large).
-// Level l: corr_l (B, H0 >> l, W0 >> l, N) contiguous, dtype 0 = float32,
-// 1 = bfloat16 (levels past L are not read); coords (B, N, 2) f32, multiplied
-// by inv_scale0 2^-l; out (B, L*81, N) f32. Returns the CUDA error.
+// One launch for the L <= 4 levels of a pyramid, radius 4 (RAFT large) or 3
+// (RAFT small). Level l: corr_l (B, H0 >> l, W0 >> l, N) contiguous, dtype
+// 0 = float32, 1 = bfloat16 (levels past L are not read); coords (B, N, 2)
+// f32, multiplied by inv_scale0 2^-l; out (B, L*D*D, N) f32, D = 2 radius + 1.
+// Returns the CUDA error.
 extern "C" int lanewise_fwd(const void* c0, const void* c1, const void* c2,
                             const void* c3, const void* coords, void* out,
                             int B, int N, int H0, int W0, int L, int radius,
                             float inv_scale0, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!sizes_ok(B, N, H0, W0, L, radius)) return (int)cudaErrorInvalidValue;
+  if (!sizes_ok(B, N, H0, W0, L)) return (int)cudaErrorInvalidValue;
   const Levels lv = {{c0, c1, c2, c3}, {nullptr, nullptr, nullptr, nullptr}, H0, W0};
-  return dtype == 1
-             ? dispatch_fwd<__nv_bfloat16>(lv, coords, out, B, N, L, inv_scale0, s)
-             : dispatch_fwd<float>(lv, coords, out, B, N, L, inv_scale0, s);
+  if (radius == 4)
+    return fwd_radius<4>(lv, coords, out, B, N, L, inv_scale0, dtype, s);
+  if (radius == 3)
+    return fwd_radius<3>(lv, coords, out, B, N, L, inv_scale0, dtype, s);
+  return (int)cudaErrorInvalidValue;
 }
 
-// g (B, L*81, N) f32; dcorr_l (d0..d3) shaped and typed as corr_l, every
+// g (B, L*D*D, N) f32; dcorr_l (d0..d3) shaped and typed as corr_l, every
 // element written; dcoords (B, N, 2) f32, the levels summed in order.
 extern "C" int lanewise_bwd(const void* c0, const void* c1, const void* c2,
                             const void* c3, const void* coords, const void* g,
@@ -649,9 +685,11 @@ extern "C" int lanewise_bwd(const void* c0, const void* c1, const void* c2,
                             int radius, float inv_scale0, int dtype,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!sizes_ok(B, N, H0, W0, L, radius)) return (int)cudaErrorInvalidValue;
+  if (!sizes_ok(B, N, H0, W0, L)) return (int)cudaErrorInvalidValue;
   const Levels lv = {{c0, c1, c2, c3}, {d0, d1, d2, d3}, H0, W0};
-  return dtype == 1
-             ? dispatch_bwd<__nv_bfloat16>(lv, coords, g, dcoords, B, N, L, inv_scale0, s)
-             : dispatch_bwd<float>(lv, coords, g, dcoords, B, N, L, inv_scale0, s);
+  if (radius == 4)
+    return bwd_radius<4>(lv, coords, g, dcoords, B, N, L, inv_scale0, dtype, s);
+  if (radius == 3)
+    return bwd_radius<3>(lv, coords, g, dcoords, B, N, L, inv_scale0, dtype, s);
+  return (int)cudaErrorInvalidValue;
 }

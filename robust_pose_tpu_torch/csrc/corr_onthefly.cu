@@ -5,13 +5,16 @@
 // (reached through _lookup_level / onthefly_lookup, one pallas_call a level).
 //
 // What it computes, per (batch b, level l, query n): the sample centre
-// c = coords[b, n] / (s0 2^l), and for the 9 x 9 window offsets (dy, dx)
-// the bilinear sample, with zero padding, of
+// c = coords[b, n] / (s0 2^l), and for the D x D window offsets (dy, dx),
+// D = 2R + 1, the bilinear sample, with zero padding, of
 //     corr(y, x) = <f2_l[b, y, x, :], f1[b, n, :]> / sqrt(C)
-// at (c.y - 4 + dy, c.x - 4 + dx). Level l is (H0 >> l, W0 >> l), its
-// pointer picked by a chain of selects (an indexed by-value pointer array
-// is copied to the stack). Output (B, L * 81, N) f32, level l at rows
-// 81 l .. 81 l + 80, dy-major; the wrapper hands out the per-level views.
+// at (c.y - R + dy, c.x - R + dx). The radius R is a template parameter:
+// 4 for RAFT's large variant (9 x 9 outputs from 10 x 10 taps), 3 for its
+// small one (7 x 7 from 8 x 8, on 128-channel features). Level l is
+// (H0 >> l, W0 >> l), its pointer picked by a chain of selects (an indexed
+// by-value pointer array is copied to the stack). Output (B, L * D^2, N)
+// f32, level l at rows D^2 l .. D^2 (l + 1) - 1, dy-major; the wrapper hands
+// out the per-level views.
 //
 // bf16 (corr_window_mma, the full-width path). The Pallas kernel multiplies
 // the whole level slab by a 128-query block on the MXU and then keeps the
@@ -30,10 +33,10 @@
 // m16n8k16, bf16 in, f32 accumulate: a chunk is 16 x 64 x C, far too small
 // for a warpgroup's wgmma, and ldmatrix feeds mma.sync straight from padded
 // shared rows with no descriptor or swizzle). A product is kept, scaled by
-// 1 / sqrt(C), only where its position lies in its own query's 10 x 10
+// 1 / sqrt(C), only where its position lies in its own query's P x P
 // window, written once into a [tap][query] table that starts at zero (zero
 // padding off the level); then the bilinear blend, rows first as the plain
-// version, and the (81, 64) output tile stored 8 neighbouring queries a
+// version, and the (D^2, 64) output tile stored 8 neighbouring queries a
 // 32-byte sector. No atomics: two calls give the same bits. Positions are
 // tested in float before any int conversion: a NaN or huge centre adds
 // nothing to the rectangle, and its NaN weights carry NaN into its outputs
@@ -64,9 +67,6 @@
 
 namespace {
 
-constexpr int R = 4;            // window radius
-constexpr int D = 2 * R + 1;    // 9 outputs a window row
-constexpr int P = D + 1;        // 10 taps a window row
 constexpr int NO_WINDOW = -(1 << 28);   // window origin of a query that reads nothing
 
 template <typename T>
@@ -127,16 +127,16 @@ __device__ __forceinline__ void rect_yx(int p, int rw, float inv_rw, int& y,
 
 // Shared memory: a ring of NSTAGE f2 chunks as rows of C bf16 padded by
 // 16 bytes (ldmatrix's 8 rows then fall in 8 different bank groups), the
-// [tap][query] table, per-query window data.
-__host__ __device__ constexpr size_t mma_smem_bytes(int C, int TQ, int CH,
-                                                    int NSTAGE) {
+// [tap][query] table of P x P taps (P = 2R + 2), per-query window data.
+__host__ __device__ constexpr size_t mma_smem_bytes(int P, int C, int TQ,
+                                                    int CH, int NSTAGE) {
   return (size_t)NSTAGE * CH * (C * 2 + 16) + sizeof(float) * P * P * TQ +
          sizeof(int) * 5 * TQ + sizeof(int) * 4 * (TQ / 32);
 }
 
-// TQ queries a block (a TH x TQ/TH tile of the query grid), TQ / 16 warps
-// of 16 queries each
-template <int C, int TQ, int CH, int NSTAGE>
+// Window radius R; TQ queries a block (a TH x TQ/TH tile of the query
+// grid), TQ / 16 warps of 16 queries each
+template <int R, int C, int TQ, int CH, int NSTAGE>
 __global__ void __launch_bounds__(TQ * 2)
 corr_window_mma(const __nv_bfloat16* __restrict__ f1,
                 const __nv_bfloat16* __restrict__ p0,
@@ -146,6 +146,8 @@ corr_window_mma(const __nv_bfloat16* __restrict__ f1,
                 const float* __restrict__ coords, float* __restrict__ out,
                 int N, int Wq, int Hq, int TH, int H0, int W0, int L,
                 float inv_scale0, float inv_sqrt_c) {
+  constexpr int D = 2 * R + 1;           // outputs a window row
+  constexpr int P = D + 1;               // taps a window row
   constexpr int THREADS = TQ * 2;
   constexpr int RS = C * 2 + 16;         // padded row, bytes
   constexpr int KS = C / 16;             // k steps of 16 channels
@@ -331,24 +333,24 @@ corr_window_mma(const __nv_bfloat16* __restrict__ f1,
   }
 }
 
-template <int C, int TQ, int CH, int NSTAGE>
+template <int R, int C, int TQ, int CH, int NSTAGE>
 int launch_mma(const void* f1, const void* p0, const void* p1, const void* p2,
                const void* p3, const void* coords, void* out, int B, int N,
                int Hq, int Wq, int TH, int H0, int W0, int L,
                float inv_scale0, float inv_sqrt_c, cudaStream_t s) {
   using bf = __nv_bfloat16;
-  constexpr size_t smem = mma_smem_bytes(C, TQ, CH, NSTAGE);
+  constexpr size_t smem = mma_smem_bytes(2 * R + 2, C, TQ, CH, NSTAGE);
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        corr_window_mma<C, TQ, CH, NSTAGE>,
+        corr_window_mma<R, C, TQ, CH, NSTAGE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const int tw = TQ / TH;
   dim3 grid(((Hq + TH - 1) / TH) * ((Wq + tw - 1) / tw), B, L);
-  corr_window_mma<C, TQ, CH, NSTAGE><<<grid, TQ * 2, smem, s>>>(
+  corr_window_mma<R, C, TQ, CH, NSTAGE><<<grid, TQ * 2, smem, s>>>(
       static_cast<const bf*>(f1), static_cast<const bf*>(p0),
       static_cast<const bf*>(p1), static_cast<const bf*>(p2),
       static_cast<const bf*>(p3), static_cast<const float*>(coords),
@@ -367,12 +369,14 @@ __device__ __forceinline__ float dot_chunk(const float* q, const float* p) {
   return a.x * q[0] + a.y * q[1] + a.z * q[2] + a.w * q[3];
 }
 
+template <int R>
 __global__ void __launch_bounds__(WARPS * 32)
 corr_window_f32(const float* __restrict__ f1, const float* __restrict__ p0,
                 const float* __restrict__ p1, const float* __restrict__ p2,
                 const float* __restrict__ p3, const float* __restrict__ coords,
                 float* __restrict__ out, int N, int C, int H0, int W0, int L,
                 float inv_scale0, float inv_sqrt_c) {
+  constexpr int D = 2 * R + 1, P = D + 1;
   constexpr int VEC = 4;
   __shared__ float win_all[WARPS * P * P];
   __shared__ float tile[D * D * WARPS];
@@ -437,14 +441,48 @@ constexpr int QUERIES = 64;    // queries a block
 constexpr int CHUNK = 16;      // f2 positions a chunk
 constexpr int STAGES = 2;      // chunks in the ring
 
+template <int R>
+int launch_f32(const void* f1, const void* p0, const void* p1, const void* p2,
+               const void* p3, const void* coords, void* out, int B, int N,
+               int C, int H0, int W0, int L, float inv_scale0,
+               float inv_sqrt_c, cudaStream_t s) {
+  dim3 grid((N + WARPS - 1) / WARPS, B, L);
+  corr_window_f32<R><<<grid, WARPS * 32, 0, s>>>(
+      static_cast<const float*>(f1), static_cast<const float*>(p0),
+      static_cast<const float*>(p1), static_cast<const float*>(p2),
+      static_cast<const float*>(p3), static_cast<const float*>(coords),
+      static_cast<float*>(out), N, C, H0, W0, L, inv_scale0, inv_sqrt_c);
+  return (int)cudaGetLastError();
+}
+
+template <int R>
+int launch(const void* f1, const void* p0, const void* p1, const void* p2,
+           const void* p3, const void* coords, void* out, int B, int N, int C,
+           int Hq, int Wq, int TH, int H0, int W0, int L, float inv_scale0,
+           float inv_sqrt_c, int dtype, cudaStream_t s) {
+  if (dtype != 1)
+    return launch_f32<R>(f1, p0, p1, p2, p3, coords, out, B, N, C, H0, W0, L,
+                         inv_scale0, inv_sqrt_c, s);
+  if (C == 256)
+    return launch_mma<R, 256, QUERIES, CHUNK, STAGES>(
+        f1, p0, p1, p2, p3, coords, out, B, N, Hq, Wq, TH, H0, W0, L,
+        inv_scale0, inv_sqrt_c, s);
+  if (C == 128)
+    return launch_mma<R, 128, QUERIES, CHUNK, STAGES>(
+        f1, p0, p1, p2, p3, coords, out, B, N, Hq, Wq, TH, H0, W0, L,
+        inv_scale0, inv_sqrt_c, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// One lookup over L (1 to 4) levels, one launch. dtype: 0 = float32,
-// 1 = bfloat16. f1 (B, N, C); level l (B, H0 >> l, W0 >> l, C) at p_l;
-// coords (B, N, 2) f32, centres in units of level 0 times s0 (inv_scale0 =
-// 1 / s0, s0 a power of two for exact scaling); out (B, L * 81, N) f32.
-// The queries form an Hq x Wq grid (N = Hq Wq) that bf16 tiles
-// TH x QUERIES/TH.
+// One lookup over L (1 to 4) levels, one launch, window radius 3 (RAFT
+// small: 7 x 7 outputs, 8 x 8 taps) or 4 (RAFT large: 9 x 9, 10 x 10).
+// dtype: 0 = float32, 1 = bfloat16. f1 (B, N, C); level l
+// (B, H0 >> l, W0 >> l, C) at p_l; coords (B, N, 2) f32, centres in units of
+// level 0 times s0 (inv_scale0 = 1 / s0, s0 a power of two for exact
+// scaling); out (B, L * (2r+1)^2, N) f32. The queries form an Hq x Wq grid
+// (N = Hq Wq) that bf16 tiles TH x QUERIES/TH.
 // All contiguous and 16-byte aligned; C 128 or 256 for bf16, a multiple of
 // 128 and at most 512 for f32 (the Python wrapper checks). Returns
 // cudaGetLastError() after the launch.
@@ -453,24 +491,14 @@ extern "C" int corr_window_pyramid(const void* f1, const void* p0,
                                    const void* p3, const void* coords,
                                    void* out, int B, int N, int C, int Hq,
                                    int Wq, int TH, int H0, int W0, int L,
-                                   float inv_scale0, float inv_sqrt_c,
-                                   int dtype, void* stream) {
+                                   int radius, float inv_scale0,
+                                   float inv_sqrt_c, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (C == 256)
-      return launch_mma<256, QUERIES, CHUNK, STAGES>(f1, p0, p1, p2, p3, coords, out, B, N, Hq,
-                                    Wq, TH, H0, W0, L, inv_scale0, inv_sqrt_c, s);
-    if (C == 128)
-      return launch_mma<128, QUERIES, CHUNK, STAGES>(f1, p0, p1, p2, p3, coords, out, B, N, Hq,
-                                    Wq, TH, H0, W0, L, inv_scale0, inv_sqrt_c, s);
-    return (int)cudaErrorInvalidValue;
-  } else {
-    dim3 grid((N + WARPS - 1) / WARPS, B, L);
-    corr_window_f32<<<grid, WARPS * 32, 0, s>>>(
-        static_cast<const float*>(f1), static_cast<const float*>(p0),
-        static_cast<const float*>(p1), static_cast<const float*>(p2),
-        static_cast<const float*>(p3), static_cast<const float*>(coords),
-        static_cast<float*>(out), N, C, H0, W0, L, inv_scale0, inv_sqrt_c);
-  }
-  return (int)cudaGetLastError();
+  if (radius == 4)
+    return launch<4>(f1, p0, p1, p2, p3, coords, out, B, N, C, Hq, Wq, TH, H0,
+                     W0, L, inv_scale0, inv_sqrt_c, dtype, s);
+  if (radius == 3)
+    return launch<3>(f1, p0, p1, p2, p3, coords, out, B, N, C, Hq, Wq, TH, H0,
+                     W0, L, inv_scale0, inv_sqrt_c, dtype, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -5,10 +5,9 @@ frame-to-model split and the training forward ``__call__``).
 
 NHWC tensors, images in [0, 255]. Config keys: image_shape (H, W), iters,
 lbgfs_iters, use_weights, mixed_precision (bf16 convs and correlation
-features, f32 parameters), unet_levels, solver_early_exit, lookup
-(``models.raft``), and for training remat, stop_flow_grad and dropout (0
-only). Not ported yet, and refused: small, dropout > 0, remat_policy
-"dots" (ROADMAP).
+features, f32 parameters), unet_levels, solver_early_exit, lookup and small
+(``models.raft``), and for training remat, remat_policy, stop_flow_grad and
+dropout (the training ``forward`` takes the dropout masks' generator).
 """
 from __future__ import annotations
 
@@ -20,7 +19,7 @@ from torch.profiler import record_function
 
 from robust_pose_tpu_torch.device import resolve_device
 from robust_pose_tpu_torch.models.layers import BatchNorm
-from robust_pose_tpu_torch.models.raft import CDIM, HDIM, RAFT, SplitConv1x1
+from robust_pose_tpu_torch.models.raft import RAFT, SplitConv1x1
 from robust_pose_tpu_torch.models.unet import TinyUNet
 from robust_pose_tpu_torch.ops.geometry import create_img_coords, depth_to_pcl
 from robust_pose_tpu_torch.ops.warp import (
@@ -55,23 +54,22 @@ class PoseNet(nn.Module):
     def __init__(self, config: dict, device=None):
         super().__init__()
         self.config = dict(config)
-        for key, bad, what in (("small", True, "the small RAFT variant"),
-                               ("remat_policy", "dots", "remat_policy 'dots'")):
-            if config.get(key) == bad:
-                raise NotImplementedError(f"{what} is not ported yet: see "
-                                          "ROADMAP.md, 'Next slices' 2")
-        if config.get("dropout", 0.0) > 0.0:
-            raise NotImplementedError("dropout > 0 is not ported yet: see "
-                                      "ROADMAP.md, 'Next slices' 2")
         H, W = config["image_shape"]
         mp = config.get("mixed_precision", True)
         dt = torch.bfloat16 if mp else torch.float32
         self.flow = RAFT(iters=config.get("iters", 12), dtype=dt, corr_dtype=dt,
                          lookup=config.get("lookup", "auto"),
-                         remat=config.get("remat", False))
+                         remat=config.get("remat", False),
+                         small=config.get("small", False),
+                         dropout=config.get("dropout", 0.0),
+                         remat_policy=config.get("remat_policy", "nothing"))
         levels = config.get("unet_levels", 3)
-        self.weight_head_2d = TinyUNet(HDIM + CDIM + 8, (H, W), dt, levels)
-        self.weight_head_3d = TinyUNet(HDIM + CDIM + 8 + 8, (H, W), dt, levels)
+        # the heads read the hidden state and the context beside 8 (2D) or
+        # 16 (3D) warped channels: 264 / 272 large, 168 / 176 small (flax
+        # infers these widths; the JAX TinyUNet's in_channels is unread)
+        feat = self.flow.hdim + self.flow.cdim + 8
+        self.weight_head_2d = TinyUNet(feat, (H, W), dt, levels)
+        self.weight_head_3d = TinyUNet(feat + 8, (H, W), dt, levels)
         self.loss_weight = nn.Parameter(torch.ones(2))
         self.register_buffer("img_coords", create_img_coords(H, W),
                              persistent=False)
@@ -300,23 +298,27 @@ class PoseNet(nn.Module):
     # training --------------------------------------------------------------
 
     def forward(self, image1l, image2l, intrinsics, baseline, image1r, image2r,
-                mask1=None, mask2=None, train: bool = False) -> PoseNetOutputs:
+                mask1=None, mask2=None, train: bool = False,
+                dropout_generator=None) -> PoseNetOutputs:
         """The JAX package's training ``__call__``: both stereo pairs and the
         temporal pair in one RAFT pass of 3B pairs, (1l,1r), (2l,2r),
         (1l,2l), with the 4 unique images through fnet and the 2 left ones
         through cnet; depth from the stereo flows, weight maps (``train``:
-        batch-statistics BatchNorm in the heads), and the differentiable
-        pose solve. With ``stop_flow_grad`` RAFT runs without autograd (the
-        JAX package's ``stop_gradient`` on the flows, hidden state and
-        context)."""
+        batch-statistics BatchNorm in the heads, and the encoders' dropout
+        with masks drawn from ``dropout_generator``, fnet's then cnet's), and
+        the differentiable pose solve. With ``stop_flow_grad`` RAFT runs
+        without autograd (the JAX package's ``stop_gradient`` on the flows,
+        hidden state and context)."""
         b = image1l.shape[0]
         with torch.set_grad_enabled(torch.is_grad_enabled()
                                     and not self.config.get("stop_flow_grad", False)):
             enc = self.flow.encode_fnet(torch.cat([image1l, image2l, image1r,
-                                                   image2r]))
+                                                   image2r]), train,
+                                        dropout_generator)
             e1l, e2l = enc[:b], enc[b:2 * b]
             e1r, e2r = enc[2 * b:3 * b], enc[3 * b:]
-            net_u, inp_u = self.flow.encode_cnet(torch.cat([image1l, image2l]))
+            net_u, inp_u = self.flow.encode_cnet(torch.cat([image1l, image2l]),
+                                                 train, dropout_generator)
             flows, hidden, context = self.flow.flow_from_features(
                 torch.cat([e1l, e2l, e1l]), torch.cat([e1r, e2r, e2l]),
                 torch.cat([net_u[:b], net_u[b:], net_u[:b]]),

@@ -1,4 +1,4 @@
-"""RAFT optical flow, large variant (port of
+"""RAFT optical flow, the large and the small variant (port of
 ``robust_pose_tpu/models/raft.py``).
 
 Module and parameter names follow the JAX package's flax tree so that
@@ -27,21 +27,45 @@ Correlation lookup (``lookup``), as in the JAX package:
   (train RAFT through ``"lanewise"``; with ``train.stop_flow_grad`` RAFT runs
   without autograd and ``"grouped"`` serves).
 
+The small variant (``small=True``, upstream RAFT's ``--small``): encoders
+of 32/64/96 channels (fnet 128 out with instance norm, cnet 96 + 64 with
+no norm), the 3x3 ``ConvGRU`` with a hidden state of 96, a radius-3
+window (7 x 7) through ``"onthefly"``, ``"lanewise"`` and ``"xla"``, no
+convex-upsampling mask head: the 1/8 flow is upsampled bilinearly
+(half-pixel centres, as ``jax.image.resize``). Like the JAX package's
+Pallas lookup, ``"grouped"`` takes no radius and reads radius-4 windows
+in the small variant too, so its ``convc1`` then takes 4 x 81 channels.
+
 ``remat`` recomputes each encoder and each GRU iteration in the backward
-pass (``torch.utils.checkpoint``), as the JAX package's ``nn.remat`` does.
+pass (``torch.utils.checkpoint``), as the JAX package's ``nn.remat`` does;
+``remat_policy`` says what it keeps: ``"nothing"`` (everything is
+recomputed) or ``"dots"`` (the outputs of convolutions and matrix products
+are kept, the rest recomputed: ``jax.checkpoint_policies.dots_saveable``).
 RAFT's BatchNorms run on running statistics in training too, and the GRU
 coordinates are not detached between iterations (the JAX ``_UpdateStep``
-has no ``stop_gradient``). The small variant and dropout wait for later
-slices (ROADMAP, "Next slices" 2).
+has no ``stop_gradient``).
+
+``dropout`` (training only) zeroes whole channels of each encoder's output,
+one keep draw per (sample, channel), and scales the kept ones by
+``1 / (1 - p)``, as flax's ``Dropout(broadcast_dims=(1, 2))``. The mask is
+drawn from the generator the caller passes, before the encoder runs and
+outside any recomputed region: ``torch.utils.checkpoint`` restores only
+the default generators, so a mask drawn inside would differ in the
+backward pass.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from robust_pose_tpu_torch.models.layers import BatchNorm, Conv2d, cached_cast
 from robust_pose_tpu_torch.ops.corr_lanewise import (
@@ -61,7 +85,30 @@ CORR_LEVELS = 4
 CORR_RADIUS = 4
 HDIM = 128
 CDIM = 128
+SMALL_RADIUS = 3
+SMALL_HDIM = 96
+SMALL_CDIM = 64
 LOOKUPS = ("onthefly", "lanewise", "grouped", "xla")
+REMAT_POLICIES = ("nothing", "dots")
+# what remat_policy "dots" keeps: the outputs of convolutions and matrix
+# products (jax.checkpoint_policies.dots_saveable)
+_DOTS = frozenset((torch.ops.aten.convolution.default, torch.ops.aten.mm.default,
+                   torch.ops.aten.bmm.default, torch.ops.aten.addmm.default))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def dropout_keep(batch: int, channels: int, p: float,
+                 generator: torch.Generator) -> Tensor:
+    """Channel dropout's keep mask, bool (B, C, 1, 1) on the generator's
+    device: one draw per (sample, channel), kept with probability 1 - p
+    (flax's ``bernoulli(rng, 1 - p)``)."""
+    u = torch.rand((batch, channels, 1, 1), generator=generator,
+                   device=generator.device)
+    return u < 1.0 - p
 
 
 def nchw(x: Tensor) -> Tensor:
@@ -114,31 +161,54 @@ class ResidualBlock(nn.Module):
 
 
 class BasicEncoder(nn.Module):
-    """Feature/context encoder at 1/8 resolution; NCHW in and out."""
+    """Feature/context encoder at 1/8 resolution; NCHW in and out. ``norm``
+    is "instance", "batch" or "none"."""
 
-    def __init__(self, output_dim=256, norm="instance", dtype=torch.float32):
+    WIDTHS = (64, 64, 96, 128)   # the stem, then the three residual stages
+
+    def __init__(self, output_dim=256, norm="instance", dtype=torch.float32,
+                 dropout=0.0):
         super().__init__()
+        if norm not in ("instance", "batch", "none"):
+            raise ValueError(f"encoder norm {norm!r}")
         self.norm = norm
-        self.conv1 = Conv2d(3, 64, 7, 2, 3, dtype)
+        self.dropout = dropout
+        stem, *stages = self.WIDTHS
+        self.conv1 = Conv2d(3, stem, 7, 2, 3, dtype)
         if norm == "batch":
-            self.norm1 = BatchNorm(64)
-        cin = 64
-        for i, (planes, stride) in enumerate([(64, 1), (96, 2), (128, 2)]):
+            self.norm1 = BatchNorm(stem)
+        cin = stem
+        for i, (planes, stride) in enumerate(zip(stages, (1, 2, 2))):
             setattr(self, f"layer{i + 1}_0",
                     ResidualBlock(cin, planes, norm, stride, dtype))
             setattr(self, f"layer{i + 1}_1",
                     ResidualBlock(planes, planes, norm, 1, dtype))
             cin = planes
-        self.conv2 = Conv2d(128, output_dim, 1, 1, 0, dtype)
+        self.conv2 = Conv2d(cin, output_dim, 1, 1, 0, dtype)
 
-    def forward(self, x):
+    def forward(self, x, keep=None):
+        """``keep``: the output's (B, C, 1, 1) dropout mask
+        (``dropout_keep``); kept channels are scaled by 1 / (1 - dropout),
+        the others zeroed. None: no dropout."""
         x = self.conv1(x)
-        x = instance_norm_nchw(x) if self.norm == "instance" else self.norm1(x)
+        if self.norm == "instance":
+            x = instance_norm_nchw(x)
+        elif self.norm == "batch":
+            x = self.norm1(x)
         x = F.relu(x)
         for i in range(3):
             x = getattr(self, f"layer{i + 1}_0")(x)
             x = getattr(self, f"layer{i + 1}_1")(x)
-        return self.conv2(x)
+        x = self.conv2(x)
+        if keep is None:
+            return x
+        return torch.where(keep, x / (1.0 - self.dropout), 0.0)
+
+
+class SmallEncoder(BasicEncoder):
+    """The small variant's encoder: 32/64/96 channels."""
+
+    WIDTHS = (32, 32, 64, 96)
 
 
 class SplitConv1x1(nn.Module):
@@ -173,9 +243,9 @@ class SplitConv1x1(nn.Module):
 
 
 class BasicMotionEncoder(nn.Module):
-    def __init__(self, dtype=torch.float32):
+    def __init__(self, dtype=torch.float32, radius=CORR_RADIUS):
         super().__init__()
-        cor_planes = CORR_LEVELS * (2 * CORR_RADIUS + 1) ** 2
+        cor_planes = CORR_LEVELS * (2 * radius + 1) ** 2
         self.convc1 = SplitConv1x1(cor_planes, 256, dtype)
         self.convc2 = Conv2d(256, 192, 3, 1, 1, dtype)
         self.convf1 = Conv2d(2, 128, 7, 1, 3, dtype)
@@ -192,6 +262,41 @@ class BasicMotionEncoder(nn.Module):
         return torch.cat([out, flow.to(out.dtype)], dim=1)
 
 
+class SmallMotionEncoder(nn.Module):
+    """The small update block's motion encoder: corr 1x1 -> 96, flow 7x7 ->
+    64 -> 32, joint 3x3 -> 80, the flow appended: 82 channels."""
+
+    def __init__(self, dtype=torch.float32, radius=SMALL_RADIUS):
+        super().__init__()
+        cor_planes = CORR_LEVELS * (2 * radius + 1) ** 2
+        self.convc1 = SplitConv1x1(cor_planes, 96, dtype)
+        self.convf1 = Conv2d(2, 64, 7, 1, 3, dtype)
+        self.convf2 = Conv2d(64, 32, 3, 1, 1, dtype)
+        self.conv = Conv2d(96 + 32, 80, 3, 1, 1, dtype)
+
+    def forward(self, flow, corr):
+        """flow (B, 2, H, W) NCHW; corr: list of (B, (2r+1)^2, N)."""
+        c = F.relu(self.convc1(corr, flow.shape[2:]))
+        f = F.relu(self.convf1(flow))
+        f = F.relu(self.convf2(f))
+        out = F.relu(self.conv(torch.cat([c, f], dim=1)))
+        return torch.cat([out, flow.to(out.dtype)], dim=1)
+
+
+def fused_gates(owner: nn.Module, hx: Tensor, name: str):
+    """sigmoid of the z and r gates of ``owner``'s ``convz<name>`` and
+    ``convr<name>``, run as one convolution over ``hx`` with the kernels
+    concatenated along the output channels."""
+    cz, cr = getattr(owner, "convz" + name), getattr(owner, "convr" + name)
+    w, b = cached_cast(
+        owner, (cz.weight, cr.weight, cz.bias, cr.bias), owner.compute_dtype,
+        make=lambda wz, wr, bz, br: (torch.cat([wz, wr]), torch.cat([bz, br])),
+        slot="_zr" + name)
+    out = torch.sigmoid(F.conv2d(hx, w, b, padding=cz.padding))
+    d = cz.out_channels
+    return out[:, :d], out[:, d:]
+
+
 class SepConvGRU(nn.Module):
     """Separable ConvGRU; the z and r gates of each pass run as one conv
     with the kernels concatenated along the output channels."""
@@ -206,32 +311,43 @@ class SepConvGRU(nn.Module):
             setattr(self, "convr" + name, Conv2d(cin, hidden_dim, ks, 1, pad, dtype))
             setattr(self, "convq" + name, Conv2d(cin, hidden_dim, ks, 1, pad, dtype))
 
-    def _zr(self, hx, name):
-        cz, cr = getattr(self, "convz" + name), getattr(self, "convr" + name)
-        w, b = cached_cast(
-            self, (cz.weight, cr.weight, cz.bias, cr.bias), self.compute_dtype,
-            make=lambda wz, wr, bz, br: (torch.cat([wz, wr]), torch.cat([bz, br])),
-            slot="_zr" + name)
-        out = torch.sigmoid(F.conv2d(hx, w, b, padding=cz.padding))
-        d = cz.out_channels
-        return out[:, :d], out[:, d:]
-
     def forward(self, h, x):
         dt = self.compute_dtype
         h = h.to(dt)
         x = x.to(dt)
         for name in ("1", "2"):
-            z, r = self._zr(torch.cat([h, x], dim=1), name)
+            z, r = fused_gates(self, torch.cat([h, x], dim=1), name)
             q = torch.tanh(getattr(self, "convq" + name)(
                 torch.cat([r * h, x], dim=1)))
             h = (1 - z) * h + z * q
         return h
 
 
-class FlowHead(nn.Module):
-    def __init__(self, dtype=torch.float32):
+class ConvGRU(nn.Module):
+    """Plain 3x3 ConvGRU (the small update block); z and r run as one conv."""
+
+    def __init__(self, hidden_dim=SMALL_HDIM, input_dim=SMALL_CDIM + 82,
+                 dtype=torch.float32):
         super().__init__()
-        self.conv1 = Conv2d(HDIM, 256, 3, 1, 1, dtype)
+        self.compute_dtype = dtype
+        cin = hidden_dim + input_dim
+        self.convz = Conv2d(cin, hidden_dim, 3, 1, 1, dtype)
+        self.convr = Conv2d(cin, hidden_dim, 3, 1, 1, dtype)
+        self.convq = Conv2d(cin, hidden_dim, 3, 1, 1, dtype)
+
+    def forward(self, h, x):
+        dt = self.compute_dtype
+        h = h.to(dt)
+        x = x.to(dt)
+        z, r = fused_gates(self, torch.cat([h, x], dim=1), "")
+        q = torch.tanh(self.convq(torch.cat([r * h, x], dim=1)))
+        return (1 - z) * h + z * q
+
+
+class FlowHead(nn.Module):
+    def __init__(self, dtype=torch.float32, hidden_dim=HDIM):
+        super().__init__()
+        self.conv1 = Conv2d(hidden_dim, 256, 3, 1, 1, dtype)
         # flow deltas accumulate over the iterations: f32
         self.conv2 = Conv2d(256, 2, 3, 1, 1, torch.float32)
 
@@ -240,12 +356,19 @@ class FlowHead(nn.Module):
 
 
 class BasicUpdateBlock(nn.Module):
-    def __init__(self, dtype=torch.float32):
+    """The update operator; ``small``: the small variant's (its motion
+    encoder, the 3x3 ConvGRU, a hidden state of 96; no mask head)."""
+
+    def __init__(self, dtype=torch.float32, radius=CORR_RADIUS, small=False):
         super().__init__()
         self.compute_dtype = dtype
-        self.encoder = BasicMotionEncoder(dtype)
-        self.gru = SepConvGRU(dtype=dtype)
-        self.flow_head = FlowHead(dtype)
+        if small:
+            self.encoder = SmallMotionEncoder(dtype, radius)
+            self.gru = ConvGRU(dtype=dtype)
+        else:
+            self.encoder = BasicMotionEncoder(dtype, radius)
+            self.gru = SepConvGRU(dtype=dtype)
+        self.flow_head = FlowHead(dtype, SMALL_HDIM if small else HDIM)
 
     def forward(self, net, inp, corr, flow):
         dt = self.compute_dtype
@@ -314,6 +437,19 @@ def lookup_corr(pyramid, coords: Tensor, radius: int = CORR_RADIUS):
     return outs
 
 
+def upsample_flow_bilinear(flow: Tensor) -> Tensor:
+    """The small variant's 8x upsampling, ``8 * jax.image.resize(flow,
+    "linear", antialias=False)``: half-pixel centres, the border rows and
+    columns repeating the edge (``F.interpolate``, ``align_corners=False``).
+
+    :param flow: (B, H, W, 2) -> (B, 8H, 8W, 2)
+    """
+    b, h, w, _ = flow.shape
+    up = F.interpolate(nchw(flow.float()), size=(8 * h, 8 * w),
+                       mode="bilinear", align_corners=False)
+    return 8.0 * nhwc(up)
+
+
 def upsample_flow_convex(flow: Tensor, mask: Tensor) -> Tensor:
     """Convex-combination 8x upsampling of 1/8-res flow.
 
@@ -336,28 +472,57 @@ def upsample_flow_convex(flow: Tensor, mask: Tensor) -> Tensor:
 
 
 class RAFT(nn.Module):
-    """RAFT (large) with the aimi-lab fork API; NHWC images in [0, 255]."""
+    """RAFT with the aimi-lab fork API; NHWC images in [0, 255].
+
+    :param small: the small variant (hidden state 96, context 64, radius 3)
+    :param dropout: the encoders' channel-dropout rate in training
+    :param remat_policy: "nothing" or "dots" (what ``remat`` keeps)
+    """
 
     def __init__(self, iters=12, dtype=torch.bfloat16, corr_dtype=torch.bfloat16,
-                 lookup="auto", remat=False):
+                 lookup="auto", remat=False, small=False, dropout=0.0,
+                 remat_policy="nothing"):
         super().__init__()
         if lookup != "auto" and lookup not in LOOKUPS:
             raise ValueError(f"unknown correlation lookup {lookup!r}; expected "
                              "one of 'auto', 'onthefly', 'lanewise', 'grouped', "
                              "'xla'")
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {remat_policy!r}; expected "
+                             "'nothing' or 'dots'")
+        if not 0.0 <= dropout < 1.0:
+            raise ValueError(f"dropout {dropout}; expected 0 <= dropout < 1")
         self.iters = iters
         self.compute_dtype = dtype
         self.corr_dtype = corr_dtype
         self.lookup = lookup
         self.remat = remat
-        self.fnet = BasicEncoder(256, "instance", dtype)
-        self.cnet = BasicEncoder(HDIM + CDIM, "batch", dtype)
-        self.update = nn.ModuleDict({"update_block": BasicUpdateBlock(dtype)})
-        self.up_mask = UpMaskHead(dtype)
+        self.remat_policy = remat_policy
+        self.small = small
+        self.dropout = dropout
+        self.hdim = SMALL_HDIM if small else HDIM
+        self.cdim = SMALL_CDIM if small else CDIM
+        # the Pallas grouped lookup takes no radius: radius 4 in both variants
+        self.radius = (SMALL_RADIUS if small and lookup != "grouped"
+                       else CORR_RADIUS)
+        encoder = SmallEncoder if small else BasicEncoder
+        self.fnet = encoder(128 if small else 256, "instance", dtype, dropout)
+        self.cnet = encoder(self.hdim + self.cdim, "none" if small else "batch",
+                            dtype, dropout)
+        self.update = nn.ModuleDict({"update_block": BasicUpdateBlock(
+            dtype, self.radius, small)})
+        if not small:
+            self.up_mask = UpMaskHead(dtype)
 
     def _run(self, fn, *args):
-        """``fn(*args)``, recomputed in the backward pass under remat."""
+        """``fn(*args)``, recomputed in the backward pass under remat (all
+        of it, or all but the convolutions and products with "dots")."""
         if self.remat and torch.is_grad_enabled():
+            if self.remat_policy == "dots":
+                return checkpoint(fn, *args, use_reentrant=False,
+                                  context_fn=functools.partial(
+                                      create_selective_checkpoint_contexts,
+                                      _dots_policy))
             return checkpoint(fn, *args, use_reentrant=False)
         return fn(*args)
 
@@ -366,14 +531,26 @@ class RAFT(nn.Module):
         x = nchw(2.0 * (images / 255.0) - 1.0)
         return x.contiguous(memory_format=torch.channels_last)
 
-    def encode_fnet(self, images: Tensor) -> Tensor:
-        """(B, H, W, 3) in [0, 255] -> (B, H/8, W/8, 256)."""
-        return nhwc(self._run(self.fnet, self._prep(images)))
+    def _encode(self, net, images, train, generator):
+        keep = None
+        if train and self.dropout > 0.0:
+            if generator is None:
+                raise ValueError("dropout in training needs a generator")
+            # drawn here, outside the recomputed region (see the module doc)
+            keep = dropout_keep(images.shape[0], net.conv2.out_channels,
+                                self.dropout, generator)
+        return nhwc(self._run(net, self._prep(images), keep))
 
-    def encode_cnet(self, images: Tensor):
-        """-> (net = tanh, inp = relu), each (B, H/8, W/8, 128)."""
-        c = nhwc(self._run(self.cnet, self._prep(images)))
-        return torch.tanh(c[..., :HDIM]), F.relu(c[..., HDIM:])
+    def encode_fnet(self, images: Tensor, train: bool = False,
+                    generator=None) -> Tensor:
+        """(B, H, W, 3) in [0, 255] -> (B, H/8, W/8, 256 or 128 small);
+        ``train`` applies dropout with masks from ``generator``."""
+        return self._encode(self.fnet, images, train, generator)
+
+    def encode_cnet(self, images: Tensor, train: bool = False, generator=None):
+        """-> (net = tanh, inp = relu), each (B, H/8, W/8, hdim / cdim)."""
+        c = self._encode(self.cnet, images, train, generator)
+        return torch.tanh(c[..., :self.hdim]), F.relu(c[..., self.hdim:])
 
     def _route(self, t: Tensor) -> str:
         """The lookup that runs for features on ``t``'s device."""
@@ -394,12 +571,12 @@ class RAFT(nn.Module):
         route = self._route(coords1)
         if route == "onthefly":
             return onthefly_lookup_pyramid(pyramid[0], pyramid[1], coords1,
-                                           radius=CORR_RADIUS)
+                                           radius=self.radius)
         if route == "lanewise":
-            return lanewise_lookup(pyramid, coords1, radius=CORR_RADIUS)
+            return lanewise_lookup(pyramid, coords1, radius=self.radius)
         if route == "grouped":
             return grouped_lookup_pyramid(pyramid, coords1)
-        return lookup_corr(pyramid, coords1)
+        return lookup_corr(pyramid, coords1, radius=self.radius)
 
     def flow_from_features(self, fmap1, fmap2, net, inp):
         """Correlation + recurrent refinement from precomputed NHWC
@@ -425,11 +602,16 @@ class RAFT(nn.Module):
         for _ in range(self.iters):
             net, coords1 = self._run(iteration, net, coords1)
         flow8 = coords1 - coords0
-        flow_up = upsample_flow_convex(flow8, nhwc(self.up_mask(net)))
+        if self.small:
+            flow_up = upsample_flow_bilinear(flow8)
+        else:
+            flow_up = upsample_flow_convex(flow8, nhwc(self.up_mask(net)))
         return flow_up, nhwc(net).float(), inp.float()
 
-    def forward(self, image1: Tensor, image2: Tensor):
+    def forward(self, image1: Tensor, image2: Tensor, train: bool = False,
+                generator=None):
         b = image1.shape[0]
-        fmaps = self.encode_fnet(torch.cat([image1, image2], dim=0))
-        net, inp = self.encode_cnet(image1)
+        fmaps = self.encode_fnet(torch.cat([image1, image2], dim=0), train,
+                                 generator)
+        net, inp = self.encode_cnet(image1, train, generator)
         return self.flow_from_features(fmaps[:b], fmaps[b:], net, inp)

@@ -17,8 +17,11 @@ dcoords = [dcx, dcy] / level_scale.
 
 The pyramid entries take the levels of ``build_corr_pyramid_t`` (level l
 the pooled half of level l - 1, read at ``level_scale * 2^l``), fill one
-(B, L*81, N) f32 buffer, level l at channels 81 l .. 81 l + 80, and return
-its per-level (B, 81, N) views, the list RAFT's motion encoder takes. The
+(B, L*D*D, N) f32 buffer, level l at channels D*D l .. D*D (l + 1) - 1, and
+return its per-level (B, D*D, N) views, the list RAFT's motion encoder
+takes. The kernels are built for radius 4 (RAFT large) and 3 (RAFT small),
+``RADII``; the wrappers refuse another radius on every device, while the
+plain per-level functions take any. The
 backward takes the cotangent of that buffer, writes every element of every
 level's dcorr once (they come from ``torch.empty``) and sums dcoords over
 the levels in level order. The one-level functions are the one-level case
@@ -42,8 +45,8 @@ from robust_pose_tpu_torch.ops import _build
 
 Tensor = torch.Tensor
 
-RADIUS = 4
-D = 2 * RADIUS + 1
+RADIUS = 4         # RAFT large; RAFT small looks up radius 3
+RADII = (3, 4)     # the radii the kernels are instantiated for
 MAX_LEVELS = 4     # levels one launch takes (RAFT's pyramid has 4)
 
 launches = 0       # K4 launches (one per call, whatever the levels)
@@ -214,11 +217,17 @@ def _check(vols, coords: Tensor, what: str):
             raise ValueError(f"{what}: level {lvl} is not contiguous")
 
 
-def _kernel_args(vols, radius: int, level_scale: float, what: str):
+def _entries(radius: int, what: str) -> int:
+    """D*D window entries for a radius the kernels take; raise for
+    another."""
+    if radius not in RADII:
+        raise ValueError(f"{what}: radius {radius}; the kernels take {RADII}")
+    return (2 * radius + 1) ** 2
+
+
+def _kernel_args(vols, radius: int, level_scale: float):
     """What both C entries take after their pointers: B, N, H0, W0, L,
     radius, 1 / level 0's scale, dtype, stream."""
-    if radius != RADIUS:
-        raise ValueError(f"{what}: radius {radius} (the kernel takes {RADIUS})")
     b, h0, w0, n = vols[0].shape
     return (b, n, h0, w0, len(vols), radius, 1.0 / float(level_scale),
             1 if vols[0].dtype == torch.bfloat16 else 0,
@@ -238,21 +247,22 @@ def lanewise_fwd_pyramid(pyramid_t, coords: Tensor, radius: int = RADIUS,
     :param pyramid_t: 1 to 4 (B, Hl, Wl, N) volumes, level l the pooled half
         of level l - 1, read at ``coords / (level_scale * 2^l)``
     :param coords: (B, N, 2) f32 sample centres (x, y)
+    :param radius: 3 or 4
     :return: (B, L*D*D, N) f32, level l at channels D*D l .. D*D (l + 1) - 1
     """
     global launches
     vols = list(pyramid_t)
     _check(vols, coords, what)
+    dd = _entries(radius, what)
     plain = plain_or_cuda(vols[0], what)
     b, _, _, n = vols[0].shape
-    dd = (2 * radius + 1) ** 2
     out = torch.empty((b, len(vols) * dd, n), dtype=torch.float32,
                       device=coords.device)
     if plain:
         for lvl, (v, o) in enumerate(zip(vols, out.split(dd, dim=1))):
             o.copy_(lanewise_fwd_plain(v, coords, radius, level_scale * 2 ** lvl))
         return out
-    args = _kernel_args(vols, radius, level_scale, what)
+    args = _kernel_args(vols, radius, level_scale)
     fn = _build.function("corr_lanewise", "lanewise_fwd", _FWD_ARGTYPES)
     _build.check(fn(*_level_ptrs(vols), coords.data_ptr(), out.data_ptr(),
                     *args), what)
@@ -273,9 +283,9 @@ def lanewise_bwd_pyramid(pyramid_t, coords: Tensor, g: Tensor,
     global bwd_launches
     vols = list(pyramid_t)
     _check(vols, coords, what)
+    dd = _entries(radius, what)
     plain = plain_or_cuda(vols[0], what)
     b, _, _, n = vols[0].shape
-    dd = (2 * radius + 1) ** 2
     if (g.shape != (b, len(vols) * dd, n) or g.dtype != torch.float32
             or not g.is_contiguous() or g.device != coords.device):
         raise ValueError(f"{what}: cotangent {tuple(g.shape)} {g.dtype} on "
@@ -289,7 +299,7 @@ def lanewise_bwd_pyramid(pyramid_t, coords: Tensor, g: Tensor,
             dcorrs.append(dc)
             dcoords = dx if dcoords is None else dcoords + dx
         return dcorrs, dcoords
-    args = _kernel_args(vols, radius, level_scale, what)
+    args = _kernel_args(vols, radius, level_scale)
     dcorrs = [torch.empty_like(v) for v in vols]
     dcoords = torch.empty((b, n, 2), dtype=torch.float32, device=coords.device)
     fn = _build.function("corr_lanewise", "lanewise_bwd", _BWD_ARGTYPES)
@@ -337,7 +347,7 @@ class _LanewiseLookup(torch.autograd.Function):
                 *[d if k else None for d, k in zip(dcorrs, need[4:])])
 
 
-def lanewise_lookup_level(corr_t: Tensor, coords: Tensor, radius: int = 4,
+def lanewise_lookup_level(corr_t: Tensor, coords: Tensor, radius: int = RADIUS,
                           level_scale: float = 1.0) -> Tensor:
     """Bilinear window lookup for one pyramid level, differentiable with
     respect to the volume and the coords: the one-level case of
@@ -352,7 +362,7 @@ def lanewise_lookup_level(corr_t: Tensor, coords: Tensor, radius: int = 4,
                                  corr_t.contiguous())
 
 
-def lanewise_lookup(pyramid_t, coords: Tensor, radius: int = 4):
+def lanewise_lookup(pyramid_t, coords: Tensor, radius: int = RADIUS):
     """Full-pyramid lookup, differentiable with respect to every level and
     the coords: one K4 launch forward, one K5 launch backward.
 
@@ -360,8 +370,9 @@ def lanewise_lookup(pyramid_t, coords: Tensor, radius: int = 4):
         ``build_corr_pyramid_t``: contiguous, one dtype and device
     :param coords: (B, H, W, 2) f32 correspondence estimates (x, y), 1/8-res
         px, N = H*W row-major
-    :return: list of per-level (B, D*D, N) f32: views of one (B, L*D*D, N)
-        buffer
+    :param radius: 3 or 4
+    :return: list of per-level (B, D*D, N) f32, D = 2 radius + 1: views of
+        one (B, L*D*D, N) buffer
     """
     what = "lanewise_lookup"
     if coords.ndim != 4 or coords.shape[3] != 2:
@@ -373,5 +384,6 @@ def lanewise_lookup(pyramid_t, coords: Tensor, radius: int = 4):
     c = coords.reshape(b, h * w, 2).contiguous()
     pyramid_t = list(pyramid_t)
     _check(pyramid_t, c, what)
+    dd = _entries(radius, what)
     out = _LanewiseLookup.apply(c, radius, 1.0, what, *pyramid_t)
-    return list(out.split((2 * radius + 1) ** 2, dim=1))
+    return list(out.split(dd, dim=1))

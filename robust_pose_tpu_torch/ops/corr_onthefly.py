@@ -10,13 +10,17 @@ because the correlation is linear in f2.
 
 Contract (the JAX package's): f1 (B, N, C) and the levels (B, H0 >> l,
 W0 >> l, C) in one dtype, bf16 or f32; coords (B, N, 2) f32 (x, y) in level-0
-pixels; level l gives (B, 81, N) f32, dy-major, each value
+pixels; a window radius r, 4 (RAFT large) or 3 (RAFT small); level l gives
+(B, D*D, N) f32, D = 2r + 1, dy-major, each value
 ``<f2_l[y, x], f1[n]> / sqrt(C)`` bilinearly sampled with zero padding at
-``coords / 2^l - 4 + (dy, dx)``.
+``coords / 2^l - r + (dy, dx)``.
 
 One launch runs every level of a pyramid: :func:`pyramid_forward` fills one
-(B, L*81, N) buffer, level l at rows 81 l .. 81 l + 80, and the entries hand
-out its per-level (B, 81, N) views, the list RAFT's motion encoder takes.
+(B, L*D*D, N) buffer, level l at rows D*D l .. D*D (l + 1) - 1, and the
+entries hand out its per-level (B, D*D, N) views, the list RAFT's motion
+encoder takes. The wrappers take the radii the kernel is built for
+(``RADII``) on every device; the plain per-level function
+(:func:`corr_lookup_level_plain`) takes any.
 :func:`corr_lookup_level` is the one-level case of the same kernel.
 
 Gradient: :func:`onthefly_lookup_pyramid` is one ``torch.autograd.Function``
@@ -37,15 +41,15 @@ from robust_pose_tpu_torch.ops import _build
 
 Tensor = torch.Tensor
 
-RADIUS = 4
-D = 2 * RADIUS + 1
+RADIUS = 4          # RAFT large; RAFT small looks up radius 3
+RADII = (3, 4)      # the radii the kernel is instantiated for
 MAX_LEVELS = 4      # levels one launch takes (RAFT's pyramid has 4)
 
 launches = 0        # K1 launches (one per call, whatever the levels)
 
 # f1, the 4 level pointers, coords, out, B, N, C, Hq, Wq, TH, H0, W0, L,
-# 1 / level 0's scale, 1 / sqrt(C), dtype, stream
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+# radius, 1 / level 0's scale, 1 / sqrt(C), dtype, stream
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -94,6 +98,13 @@ def corr_lookup_level_plain(f1: Tensor, f2l: Tensor, coords: Tensor,
     return val.reshape(b, n, d * d).transpose(1, 2).contiguous()
 
 
+def _window_size(radius: int, what: str) -> int:
+    """D = 2r + 1 for a radius the kernel takes; raise for another."""
+    if radius not in RADII:
+        raise ValueError(f"{what}: radius {radius}; the kernel takes {RADII}")
+    return 2 * radius + 1
+
+
 def _check(f1: Tensor, levels, coords: Tensor, grid, what: str):
     """Raise unless f1 is (B, N, C) f32 or bf16, the levels 1 to 4
     (B, H0 >> l, W0 >> l, C) in f1's dtype and on its device, coords a
@@ -132,9 +143,9 @@ def _check(f1: Tensor, levels, coords: Tensor, grid, what: str):
 
 
 def _launch(f1: Tensor, levels, coords: Tensor, out: Tensor, grid,
-            level_scale: float, what: str) -> None:
+            radius: int, level_scale: float, what: str) -> None:
     """One K1 launch over all ``levels`` (checked CUDA tensors) into the
-    (B, L*81, N) buffer ``out``; counts the launch."""
+    (B, L*D*D, N) buffer ``out``; counts the launch."""
     global launches
     b, n, c = f1.shape
     bf16 = f1.dtype == torch.bfloat16
@@ -153,7 +164,7 @@ def _launch(f1: Tensor, levels, coords: Tensor, out: Tensor, grid,
     h0, w0 = levels[0].shape[1:3]
     fn = _build.function("corr_onthefly", "corr_window_pyramid", _ARGTYPES)
     _build.check(fn(f1.data_ptr(), *ptrs, coords.data_ptr(), out.data_ptr(),
-                    b, n, c, hq, wq, th, h0, w0, len(levels),
+                    b, n, c, hq, wq, th, h0, w0, len(levels), radius,
                     1.0 / float(level_scale), 1.0 / math.sqrt(c),
                     1 if bf16 else 0, _build.stream_of(f1)), what)
     launches += 1
@@ -169,24 +180,25 @@ def pyramid_forward(f1: Tensor, levels, coords: Tensor, radius: int = RADIUS,
     :param levels: 1 to 4 (B, Hl, Wl, C) in f1's dtype, level l the pooled
         half of level l - 1, read at ``coords / (level_scale * 2^l)``
     :param coords: (B, N, 2) f32 sample centres (x, y)
+    :param radius: window radius, 3 or 4
     :param grid: (H, W) of the queries, N = H W row-major (the kernel tiles
         them 8 x 8); default one row
-    :return: (B, L*81, N) f32, level l at rows 81 l .. 81 l + 80
+    :return: (B, L*D*D, N) f32, D = 2 radius + 1, level l at rows D*D l ..
+        D*D (l + 1) - 1
     """
     levels = list(levels)
     b, n = f1.shape[:2]
     grid = (1, n) if grid is None else tuple(grid)
     _check(f1, levels, coords, grid, what)
-    if radius != RADIUS:
-        raise ValueError(f"{what}: radius {radius} (the kernel takes {RADIUS})")
-    out = torch.empty((b, len(levels) * D * D, n), dtype=torch.float32,
+    d = _window_size(radius, what)
+    out = torch.empty((b, len(levels) * d * d, n), dtype=torch.float32,
                       device=f1.device)
     if plain_or_cuda(f1, what):
-        for lvl, (v, o) in enumerate(zip(levels, out.split(D * D, dim=1))):
+        for lvl, (v, o) in enumerate(zip(levels, out.split(d * d, dim=1))):
             o.copy_(corr_lookup_level_plain(f1, v, coords, radius,
                                             level_scale * 2 ** lvl))
     else:
-        _launch(f1, levels, coords, out, grid, level_scale, what)
+        _launch(f1, levels, coords, out, grid, radius, level_scale, what)
     return out
 
 
@@ -225,7 +237,8 @@ class _OntheflyLookup(torch.autograd.Function):
         f1g, cg = (t.detach().float().requires_grad_() for t in (f1, coords))
         df1 = dcoords = None
         dlevels = []
-        for lvl, (v, gl) in enumerate(zip(levels, g.float().split(D * D, dim=1))):
+        dd = (2 * ctx.radius + 1) ** 2
+        for lvl, (v, gl) in enumerate(zip(levels, g.float().split(dd, dim=1))):
             vg = v.detach().requires_grad_()
             with torch.enable_grad():
                 out = corr_lookup_level_plain(f1g, vg, cg, ctx.radius,
@@ -246,8 +259,9 @@ def onthefly_lookup_pyramid(f1: Tensor, levels, coords: Tensor,
     :param levels: list of 1 to 4 (B, Hl, Wl, C) from ``pool_fmap_pyramid``
         in f1's dtype, level l read at ``coords / (level_scale * 2^l)``
     :param coords: (B, H, W, 2) correspondence estimates (x, y), 1/8-res px
-    :return: list of per-level (B, 81, N) f32, N = H*W row-major: views of
-        one (B, L*81, N) buffer
+    :param radius: window radius, 3 or 4
+    :return: list of per-level (B, D*D, N) f32, D = 2 radius + 1, N = H*W
+        row-major: views of one (B, L*D*D, N) buffer
     """
     what = "onthefly_lookup_pyramid"
     if f1.ndim != 4 or coords.shape != f1.shape[:3] + (2,):
@@ -258,9 +272,10 @@ def onthefly_lookup_pyramid(f1: Tensor, levels, coords: Tensor,
     f1f = f1.reshape(b, h * w, c)
     cs = coords.reshape(b, h * w, 2).float().contiguous()
     levels = [v.contiguous() for v in levels]
+    d = _window_size(radius, what)
     out = _OntheflyLookup.apply(f1f.contiguous(), cs, radius, float(level_scale),
                                 (h, w), *levels)
-    return list(out.split(D * D, dim=1))
+    return list(out.split(d * d, dim=1))
 
 
 def onthefly_lookup(f1: Tensor, f2_levels, coords: Tensor, radius: int = RADIUS):

@@ -21,6 +21,14 @@ freeze schedule, gradient accumulation and the train/val steps.
 * ``train.grad_accum`` splits the batch into microbatches run in order
   (the heads' BatchNorm statistics chain through them) and averages their
   gradients.
+* Dropout (``model.dropout`` > 0): each forward of step s draws its masks
+  from a ``torch.Generator`` on the model's device seeded from
+  (``DROPOUT_SEED``, s), as the JAX trainer folds the step into
+  ``PRNGKey(1234)``: every microbatch of a step gets the same stream, and a
+  resumed run draws what the uninterrupted one would. The bits differ from
+  JAX's; the distribution is the same.
+* Resume: ``init_state(variables=utils.checkpoints.load_train_state(path))``
+  restores the weights, BatchNorm statistics, Adam moments, count and step.
 
 The parameters, BatchNorm statistics and optimizer moments are updated in
 place: a ``TrainState`` holds the model's own tensors. BatchNorm follows
@@ -41,6 +49,8 @@ from robust_pose_tpu_torch.models.posenet import PoseNet
 from robust_pose_tpu_torch.train.losses import loss_metrics, supervised_pose_loss
 
 Tensor = torch.Tensor
+
+DROPOUT_SEED = 1234       # the JAX trainer's PRNGKey(1234)
 
 
 @dataclasses.dataclass
@@ -149,8 +159,10 @@ class PoseNetTrainer:
     def init_state(self, variables: Optional[Dict] = None,
                    seed: int = 0) -> TrainState:
         """A fresh state: random weights from ``seed``, or ``variables``:
-        a port ``state_dict``, or ``utils.convert.train_state_from_jax``'s
-        dict (weights, optimizer moments, count and step)."""
+        a port ``state_dict``, or the dict of
+        ``utils.convert.train_state_from_jax`` and
+        ``utils.checkpoints.load_train_state`` (weights, optimizer moments,
+        count and step)."""
         m = self.model
         full = variables is not None and "state_dict" in variables
         if variables is None:
@@ -182,10 +194,20 @@ class PoseNetTrainer:
                 t(img2r).float(), t(mask1).bool(), t(mask2).bool(),
                 gt.float(), K.float(), bl.float())
 
-    def _forward(self, batch, train: bool):
+    def dropout_generator(self, step: int):
+        """The generator of step ``step``'s dropout masks (None without
+        dropout)."""
+        if self.model.flow.dropout <= 0.0:
+            return None
+        g = torch.Generator(device=self.device)
+        return g.manual_seed((DROPOUT_SEED << 32) + int(step))
+
+    def _forward(self, batch, train: bool, step: int = 0):
         img1, img2, img1r, img2r, mask1, mask2, gt, K, bl = batch
         out = self.model(img1, img2, K, bl, img1r, img2r, mask1, mask2,
-                         train=train)
+                         train=train,
+                         dropout_generator=self.dropout_generator(step)
+                         if train else None)
         self.last_solver_iters = out.solver_iters
         return supervised_pose_loss(out.pose_tan, gt)
 
@@ -207,7 +229,7 @@ class PoseNetTrainer:
         for i in range(accum):
             mb = [x[i * b // accum:(i + 1) * b // accum] for x in batch]
             with record_function("train_step.forward"):
-                loss_pose = self._forward(mb, train=True)
+                loss_pose = self._forward(mb, train=True, step=state.step)
             with record_function("train_step.backward"):
                 loss_pose.mean().backward()
             losses.append(loss_pose.detach())

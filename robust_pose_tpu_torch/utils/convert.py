@@ -53,7 +53,7 @@ def params_from_jax(variables) -> Dict[str, torch.Tensor]:
             # (kh, kw, I, O) -> (O, I, kh, kw) for a conv and, with the
             # same axis order, (kh, kw, O, I) -> (I, O, kh, kw) for upconv*
             arr = arr.transpose(3, 2, 0, 1)
-        sd[".".join(mods + [name])] = torch.from_numpy(np.ascontiguousarray(arr))
+        sd[".".join(mods + [name])] = torch.from_numpy(np.array(arr, order="C"))
     for path, leaf in _walk(variables.get("batch_stats", {})):
         *mods, leaf_name = path
         sd[".".join(mods + [_STAT_NAMES[leaf_name]])] = torch.from_numpy(

@@ -1,5 +1,5 @@
-"""Rules of the port: it never imports JAX, flax or the JAX package, and
-its entry points never fall back to the CPU on their own."""
+"""Rules of the port: it never imports JAX, flax, msgpack or the JAX
+package, and its entry points never fall back to the CPU on their own."""
 import ast
 import subprocess
 import sys
@@ -11,7 +11,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "robust_pose_tpu_torch"
-FORBIDDEN = ("jax", "flax", "robust_pose_tpu", "tests")
+FORBIDDEN = ("jax", "flax", "robust_pose_tpu", "tests", "msgpack")
 
 
 def _modules():
@@ -22,14 +22,14 @@ def _modules():
 
 def test_importing_every_module_loads_no_jax():
     """A fresh interpreter imports every module of the port (and runs
-    nothing else); afterwards neither jax, flax nor robust_pose_tpu is in
-    sys.modules."""
+    nothing else); afterwards neither jax, flax, msgpack nor robust_pose_tpu
+    is in sys.modules."""
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'robust_pose_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'msgpack', 'robust_pose_tpu'))\n"
         "print('LOADED', bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -42,7 +42,8 @@ def test_importing_every_module_loads_no_jax():
                                         + [ROOT / "chip_smoke.py"]))
 def test_no_forbidden_import_statement(path):
     """No import statement of the port or of chip_smoke.py names jax, flax,
-    the JAX package or the tests (including imports inside functions)."""
+    msgpack, the JAX package or the tests (including imports inside
+    functions)."""
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -115,16 +116,23 @@ def test_kernel_wrappers_take_plain_versions_only_on_cpu():
             fn([meta(pyr[0])], meta(pyr_coords))
 
 
+# each key with a value the port now implements, and one beside it that
+# neither package implements
 @pytest.mark.parametrize("key,value", [("small", True), ("dropout", 0.1),
                                        ("remat_policy", "dots")])
 def test_unported_config_values_are_refused(key, value):
-    """Config values the port does not implement yet raise, naming the
-    ROADMAP, instead of being ignored."""
+    """The model keys that once waited for a later slice are taken (the
+    model reflects them); a value beside them that neither package
+    implements raises by name instead of being ignored."""
     from robust_pose_tpu_torch.models.posenet import PoseNet
 
-    cfg = {"image_shape": (64, 96), "iters": 1, "unet_levels": 1, key: value}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PoseNet(cfg, device="cpu")
+    cfg = {"image_shape": (64, 96), "iters": 1, "unet_levels": 1}
+    flow = PoseNet({**cfg, key: value}, device="cpu").flow
+    assert getattr(flow, key) == value
+    bad = {"small": ("lookup", "gather"), "dropout": ("dropout", 1.0),
+           "remat_policy": ("remat_policy", "everything")}[key]
+    with pytest.raises(ValueError, match=bad[0]):
+        PoseNet({**cfg, key: value, bad[0]: bad[1]}, device="cpu")
 
 
 def test_trainer_needs_a_device_choice_without_cuda():
