@@ -4,6 +4,10 @@
     python3 chip_smoke.py           # every phase, then the result lines
     python3 chip_smoke.py kernels   # phases 1 and 2 only, phase 2 three times
                                     # over (its spread); no result line
+    python3 chip_smoke.py small_train  # phase 1, then RAFT small's training
+                                    # step 96 times a remat_policy from
+                                    # 48 fresh trainers; no result line
+    python3 chip_smoke.py cli       # phases 1, 4 and 14; no result line
 
 Phases, each printing one JSON line:
 
@@ -106,6 +110,19 @@ Phases, each printing one JSON line:
                   save_train_state after step 1, load_train_state, step 2
                   against the uninterrupted step 2 (tolerances in the
                   phase).
+14. cli        -- the trajectory-inference CLI (robust_pose_tpu_torch.
+                  scripts.infer_trajectory): DevicePreproc on the card
+                  against the CPU from 1024 x 1280 uint8 halves (maps:
+                  masks and images bit for bit; pseudo shift: masks bit
+                  for bit, images within 1e-3) and its device ms; then the
+                  CLI's run at 512x640 from 2048 x 1280 frames in memory
+                  with --window 8 --device-preproc, weights through
+                  save_checkpoint / load_checkpoint_any: infer_f2f.yaml
+                  (33 frames; K1, K2 and the LM solve counted a window)
+                  and infer_scared.yaml (17 frames, its own pool size),
+                  one warm-up pass and one timed, each with FPS (host
+                  clock around the loop, ending in a synchronize) beside
+                  phase main's, stage means, ATE/RPE and launches.
 
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 Every failed check raises: the script exits non-zero and prints no result.
@@ -1442,31 +1459,50 @@ def production_estimator(dev, mixed_precision, state_dict=None, disparity=8,
     levels; ``small``: RAFT's small variant) for the SLAM config ``slam``;
     random seeded weights with bench.py's flow head (zero kernel, bias =
     disparity / (8 * iters)) unless ``state_dict`` is given."""
-    import torch
-
-    from robust_pose_tpu_torch.models.posenet import PoseNet
     from robust_pose_tpu_torch.slam.pose_estimator import PoseEstimator
 
+    model_cfg = production_model_cfg(slam, mixed_precision, lookup, small)
+    if state_dict is None:
+        state_dict = production_weights(dev, model_cfg, disparity)
+    est = PoseEstimator(slam, PRODUCTION_K, PRODUCTION_BF,
+                        {"state_dict": state_dict,
+                         "config": {"model": model_cfg}}, (W, H), device=dev)
+    return est, state_dict
+
+
+PRODUCTION_K = np.array([[FX, 0.0, W / 2], [0.0, FX, H / 2], [0.0, 0.0, 1.0]])
+PRODUCTION_BF = 16.0          # stereo baseline x focal length, pixels
+
+
+def production_model_cfg(slam=F2F_SLAM, mixed_precision=True, lookup=None,
+                          small=False):
+    """The full-width model config of production_estimator."""
     model_cfg = {"image_shape": (H, W), "iters": 12,
                  "lbgfs_iters": slam["lbgfs_iters"], "use_weights": True,
                  "unet_levels": 3, "mixed_precision": mixed_precision,
                  "small": small}
     if lookup is not None:
         model_cfg["lookup"] = lookup
-    if state_dict is None:
-        m = PoseNet(model_cfg, device=dev)
-        m.reset_parameters(torch.Generator().manual_seed(0))
-        fh = m.flow.update["update_block"].flow_head.conv2
-        with torch.no_grad():
-            fh.weight.zero_()
-            fh.bias.copy_(torch.tensor([-disparity / (8.0 * 12), 0.0]))
-        state_dict = {k: v.cpu() for k, v in m.state_dict().items()}
-        del m
-    K = np.array([[FX, 0.0, W / 2], [0.0, FX, H / 2], [0.0, 0.0, 1.0]])
-    est = PoseEstimator(slam, K, 16.0, {"state_dict": state_dict,
-                                        "config": {"model": model_cfg}},
-                        (W, H), device=dev)
-    return est, state_dict
+    return model_cfg
+
+
+def production_weights(dev, model_cfg, disparity=8):
+    """Random seeded weights for ``model_cfg`` with bench.py's flow head
+    (zero kernel, bias = disparity / (8 * iters)), on the CPU."""
+    import torch
+
+    from robust_pose_tpu_torch.models.posenet import PoseNet
+
+    m = PoseNet(model_cfg, device=dev)
+    m.reset_parameters(torch.Generator().manual_seed(0))
+    fh = m.flow.update["update_block"].flow_head.conv2
+    with torch.no_grad():
+        fh.weight.zero_()
+        fh.bias.copy_(torch.tensor([-disparity / (8.0 * 12), 0.0]))
+    return {k: v.cpu() for k, v in m.state_dict().items()}
+
+
+MAIN_FPS = {}                 # phase main's (and small's) f2f FPS of this run
 
 
 def phase_main(dev, smi, small=False):
@@ -1532,6 +1568,7 @@ def phase_main(dev, smi, small=False):
     deltas = [tangent_distance(rel[True][i:i + 1], rel[False][i:i + 1])
               for i in range(T_WINDOW)]
     require(max(deltas) < 2e-2, f"{what}: bf16-vs-f32 pose deltas {deltas}")
+    MAIN_FPS[what] = fps
     emit({"phase": what, "part": "f2f", "card": smi, "shape": [H, W],
           "window": T_WINDOW, "small": small,
           "timed_windows": n_timed, "fps": fps, "seconds": dt,
@@ -1682,43 +1719,6 @@ def phase_profile(est, window, masks, what="main"):
 # ---------------------------------------------------------------------------
 # phases 6 and 7
 # ---------------------------------------------------------------------------
-
-def read_yaml(path):
-    """The mappings, lists and scalars of a block-style YAML file of
-    configuration/ (train.yaml, infer_scared.yaml; "#" comments, empty
-    values as empty mappings) without a YAML package."""
-    def scalar(v):
-        for conv in (int, float):
-            try:
-                return conv(v)
-            except ValueError:
-                pass
-        return {"True": True, "False": False}.get(v, v)
-
-    root = {}
-    stack = [[-1, root, None, None]]     # [indent, container, owner, key]
-    for raw in open(path).read().splitlines():
-        raw = raw.split(" #")[0].rstrip()
-        if not raw.strip() or raw.lstrip().startswith("#"):
-            continue
-        ind = len(raw) - len(raw.lstrip())
-        line = raw.strip()
-        while ind <= stack[-1][0]:
-            stack.pop()
-        top = stack[-1]
-        if line.startswith("- "):
-            if top[1] == {}:                 # "key:" followed by a list
-                top[1] = top[2][top[3]] = []
-            top[1].append(scalar(line[2:].strip()))
-            continue
-        key, _, val = line.partition(":")
-        if val.strip():
-            top[1][key] = scalar(val.strip())
-        else:
-            top[1][key] = {}
-            stack.append([ind, top[1][key], top[1], key])
-    return root
-
 
 def spy_grads(trainer):
     """Record the gradients the trainer's optimizer receives."""
@@ -1994,6 +1994,8 @@ def phase_train(dev, smi):
 def train_yaml():
     """configuration/train.yaml as the trainer's config (model, train,
     image_shape)."""
+    from robust_pose_tpu_torch.utils.config import read_yaml
+
     y = read_yaml("configuration/train.yaml")
     require(y["train"]["batch_size"] == TRAIN_BATCH
             and tuple(y["image_shape"]) == (H, W), "train.yaml changed")
@@ -2031,22 +2033,103 @@ def phase_small(dev, smi):
     with remat_policy "dots" and, for its peak memory beside it,
     "nothing". Returns the launches of the f2f windows and of the "dots"
     steps."""
+    f2f = phase_main(dev, smi, small=True)
+    cfgs, sd = small_train_configs()
+    batch = train_batch_full(dev)
+    train = {policy: train_run(dev, smi, "small_train", policy, cfg, sd,
+                               batch, True) for policy, cfg in cfgs.items()}
+    return f2f, train["dots"]
+
+
+def small_train_configs():
+    """configuration/train.yaml with small: True, RAFT live through the
+    lane-wise lookup, remat, dropout 0.1: one config for each remat_policy
+    ("dots", "nothing"), and the seeded full-width weights."""
     import copy
 
-    f2f = phase_main(dev, smi, small=True)
     base = train_yaml()
     base["model"].update(small=True, dropout=0.1, remat=True,
                          lookup="lanewise")
     base["train"]["freeze_flow_steps"] = 0
-    sd = train_weights_full(base["model"])
-    batch = train_batch_full(dev)
-    train = {}
+    cfgs = {}
     for policy in ("dots", "nothing"):
-        cfg = copy.deepcopy(base)
-        cfg["model"]["remat_policy"] = policy
-        train[policy] = train_run(dev, smi, "small_train", policy, cfg, sd,
-                                  batch, True)
-    return f2f, train["dots"]
+        cfgs[policy] = copy.deepcopy(base)
+        cfgs[policy]["model"]["remat_policy"] = policy
+    return cfgs, train_weights_full(base["model"])
+
+
+def poison_free_memory(dev):
+    """Fill most of the card's free memory with NaN and hand it back to
+    the caching allocator, so that a later ``torch.empty`` block holds NaN
+    where nothing wrote it."""
+    import torch
+
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info(dev)
+    junk = torch.full((int(free * 0.8) // 4,), float("nan"), device=dev)
+    del junk
+
+
+def phase_small_train_repro(dev, smi, trainers=48, steps=2):
+    """``python3 chip_smoke.py small_train``: RAFT small's full-width
+    training step (phase small's configurations, weights and batch), for
+    each remat_policy ``trainers`` fresh trainers of ``steps`` steps each;
+    every other trainer has the allocator's free memory filled with NaN
+    before each step (an unwritten element read then shows as NaN). Every
+    step runs under ``StepProbe``; a step whose loss or gradient norm is
+    not finite is printed with its ``explain``, counted as the reference's
+    own where ``reference_nan`` holds (the trainer's later steps are then
+    not read), and otherwise fails the phase after all have run."""
+    import torch
+
+    from robust_pose_tpu_torch.train.trainer import PoseNetTrainer
+
+    cfgs, sd = small_train_configs()
+    batch = train_batch_full(dev)
+    faults = []
+    for policy, cfg in cfgs.items():
+        t0 = time.perf_counter()
+        gnorms, losses, ref = [], [], 0
+        for n in range(trainers):
+            tr = PoseNetTrainer(cfg, device=dev)
+            st = tr.init_state(sd)
+            probe = StepProbe(tr)
+            metrics = []
+            for _ in range(steps):
+                if n % 2:
+                    poison_free_memory(dev)
+                st, mt = tr.train_step(st, batch)
+                metrics.append(mt)
+            probe.remove()
+            for i, mt in enumerate(metrics):
+                loss, gn = float(mt["train/loss_total"]), float(mt["train/grad_norm"])
+                losses.append(loss)
+                gnorms.append(gn)
+                if np.isfinite(loss) and np.isfinite(gn):
+                    continue
+                expl = probe.explain(i)
+                fault = {"policy": policy, "trainer": n, "poisoned": bool(n % 2),
+                         "loss": loss, "grad_norm": gn,
+                         "reference_nan": reference_nan(expl, loss, gn), **expl}
+                emit({"phase": "small_train_repro", "fault": fault})
+                if fault["reference_nan"]:
+                    ref += 1
+                else:
+                    faults.append(fault)
+                break
+            del tr, st, probe, metrics
+            torch.cuda.empty_cache()
+        fin = [g for g in gnorms if np.isfinite(g)]
+        emit({"phase": "small_train_repro", "policy": policy, "card": smi,
+              "trainers": trainers, "steps_each": steps,
+              "steps": len(gnorms), "poisoned_steps": (trainers // 2) * steps,
+              "reference_nan_steps": ref,
+              "other_non_finite": sum(1 for f in faults if f["policy"] == policy),
+              "grad_norm": [min(fin), max(fin)] if fin else None,
+              "loss": [min(losses), max(losses)],
+              "seconds": time.perf_counter() - t0})
+    require(not faults, f"small_train_repro: {len(faults)} non-finite steps "
+            "that are not the reference's")
 
 
 def phase_checkpoints(dev, model_cfg, sd, slam, K, frames):
@@ -2180,12 +2263,146 @@ def phase_checkpoints(dev, model_cfg, sd, slam, K, frames):
                      "worst_error_over_tolerance": worst, "worst_at": where}})
 
 
+class StepProbe:
+    """What a non-finite gradient norm needs explained, recorded for every
+    ``train_step`` of a trainer while installed, from the step itself:
+    the per-sample loss before the nanmean, the cotangent the pose layer's
+    backward received (a hook on the predicted tangent), the pose layer's
+    LM iteration counts and done / failure flags (its solve asked for
+    ``flags``: the same launch), the stereo flows' pixels whose depth
+    derivative baseline / flow_x^2 is not finite (flow_x zero: the
+    reference's depth division then gives every RAFT gradient NaN, see
+    ``reference_nan``) with the finiteness of the gradient each stereo flow
+    received, and the gradients handed to the optimizer. Only references
+    to device tensors are kept: no host sync a step. ``explain(i)`` reads
+    step i on the host."""
+
+    def __init__(self, tr):
+        import torch
+
+        from robust_pose_tpu_torch.solver import gauss_newton as GN
+        from robust_pose_tpu_torch.train import trainer as T
+
+        self.steps = []
+        self._undo = []
+        solve, loss = GN.lm_solve, T.supervised_pose_loss
+        step, update = tr.train_step, tr.optimizer.update
+        depth = tr.model.disparity_to_depth
+
+        def depth_probed(stereo_flow, baseline):
+            rec = self.steps[-1]
+            fx = stereo_flow[..., 0].detach().float()
+            steep = ~torch.isfinite(baseline[:, None, None] / (fx * fx))
+            rec.setdefault("steep_flow_px", []).append(steep.sum())
+            if stereo_flow.requires_grad:
+                grads = rec.setdefault("stereo_flow_grad_finite", [])
+                stereo_flow.register_hook(
+                    lambda g: grads.append(torch.isfinite(g).all()))
+            return depth(stereo_flow, baseline)
+
+        def solve_flags(*a, **kw):
+            if kw.get("flags"):
+                return solve(*a, **kw)
+            *out, niter, done, failed = solve(*a, **kw, flags=True)
+            self.steps[-1]["solve"] = (niter, done, failed)
+            return (*out, niter)
+
+        def loss_hooked(pose_tan, gt):
+            rec = self.steps[-1]
+            if pose_tan.requires_grad:
+                pose_tan.register_hook(
+                    lambda g: rec.__setitem__("cotangent", g.detach().clone()))
+            out = loss(pose_tan, gt)
+            rec["loss"] = out.detach().sum(-1)
+            rec["tangent"] = pose_tan.detach()
+            return out
+
+        def update_spy(params, grads, opt_state):
+            self.steps[-1]["grads"] = grads
+            return update(params, grads, opt_state)
+
+        def step_probed(state, batch):
+            self.steps.append({})
+            return step(state, batch)
+
+        GN.lm_solve, T.supervised_pose_loss = solve_flags, loss_hooked
+        tr.train_step, tr.optimizer.update = step_probed, update_spy
+        tr.model.disparity_to_depth = depth_probed
+        self._undo = [lambda: setattr(GN, "lm_solve", solve),
+                      lambda: setattr(T, "supervised_pose_loss", loss),
+                      lambda: setattr(tr, "train_step", step),
+                      lambda: setattr(tr.optimizer, "update", update),
+                      lambda: delattr(tr.model, "disparity_to_depth")]
+
+    def remove(self):
+        for undo in self._undo:
+            undo()
+
+    def explain(self, i):
+        import torch
+
+        rec = self.steps[i]
+        bad = [k for k, g in rec.get("grads", {}).items()
+               if g is not None and not bool(torch.isfinite(g).all())]
+        host = lambda t: None if t is None else t.float().cpu().tolist()
+        niter, done, failed = rec.get("solve", (None, None, None))
+        cot = rec.get("cotangent")
+        return {"step": i, "non_finite_leaves": len(bad),
+                "leaves": bad[:24],
+                "non_finite_outside_raft": [k for k in bad
+                                            if not k.startswith("flow.")],
+                "steep_flow_px": [int(n) for n in rec.get("steep_flow_px", [])],
+                "stereo_flow_grad_finite": [bool(f) for f in
+                                            rec.get("stereo_flow_grad_finite", [])],
+                "loss_per_sample": host(rec.get("loss")),
+                "tangent_finite": host(torch.isfinite(rec["tangent"]).all(-1))
+                if "tangent" in rec else None,
+                "lm_iters": host(niter), "done": host(done),
+                "failed": host(failed),
+                "cotangent_finite": None if cot is None
+                else host(torch.isfinite(cot).all(-1)),
+                "cotangent_absmax": None if cot is None
+                else host(cot.abs().amax(-1))}
+
+
+def reference_nan(expl, loss, gnorm):
+    """True when a step's non-finite gradient norm is the reference's own
+    (tests/test_torch_port_train_nonfinite.py: the JAX package's trainer
+    gives the same non-finite leaves): some stereo flow x is zero (its
+    depth derivative baseline / flow_x^2 is not finite), so the depth
+    division's backward gives 0 * inf = NaN under the validity mask and
+    every RAFT gradient (flow.*) is NaN, while the loss and every other
+    gradient stay finite. The update then makes every parameter NaN, in
+    the reference as here, so nothing is asserted of later steps."""
+    return (np.isfinite(loss) and not np.isfinite(gnorm)
+            and expl["non_finite_leaves"] > 0
+            and not expl["non_finite_outside_raft"]
+            and sum(expl["steep_flow_px"]) > 0)
+
+
+def check_steps(probe, metrics, what):
+    """Every step's loss and gradient norm finite, except from a step
+    whose non-finite gradient is the reference's own (``reference_nan``)
+    on. Returns that step's ``explain`` (None if every step was finite)."""
+    for i, mt in enumerate(metrics):
+        loss, gn = float(mt["train/loss_total"]), float(mt["train/grad_norm"])
+        if np.isfinite(loss) and np.isfinite(gn):
+            continue
+        expl = probe.explain(i)
+        require(reference_nan(expl, loss, gn),
+                f"{what}: step {i}: loss {loss}, grad norm {gn}; "
+                + json.dumps(expl))
+        return expl
+    return None
+
+
 def train_run(dev, smi, phase, name, cfg, sd, batch, live):
     """One training configuration at full width: 1 warm-up and TRAIN_TIMED
     timed steps with the launch counters set to 0 just before and read just
     after, then one step under torch.profiler. ``live``: RAFT's gradients
     flow (through the lane-wise lookup), else RAFT is frozen and cut off.
-    Returns the launch counts of the timed steps."""
+    A non-finite loss or gradient norm fails with ``StepProbe.explain`` of
+    the step. Returns the launch counts of the timed steps."""
     import torch
 
     from robust_pose_tpu_torch.train.trainer import PoseNetTrainer
@@ -2193,9 +2410,10 @@ def train_run(dev, smi, phase, name, cfg, sd, batch, live):
     iters = cfg["model"]["iters"]
     tr = PoseNetTrainer(cfg, device=dev)
     st = tr.init_state(sd)
+    probe = StepProbe(tr)
     flow0 = {k: v.detach().clone() for k, v in st.params.items()
              if k.startswith("flow.")}
-    st, _ = tr.train_step(st, batch)                        # warm-up
+    st, warm = tr.train_step(st, batch)                     # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launch_counts()
@@ -2207,6 +2425,7 @@ def train_run(dev, smi, phase, name, cfg, sd, batch, live):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = launch_counts()
+    probe.remove()
     loss = [float(mt["train/loss_total"]) for mt in metrics]
     gnorm = [float(mt["train/grad_norm"]) for mt in metrics]
     it = tr.last_solver_iters.cpu()
@@ -2214,9 +2433,10 @@ def train_run(dev, smi, phase, name, cfg, sd, batch, live):
              if not torch.equal(st.params[k].detach(), v)]
     per_step = {k: v / TRAIN_TIMED for k, v in launches.items()}
     what = f"{phase} {name}"
-    require(all(np.isfinite(loss)) and all(np.isfinite(gnorm)),
-            f"{what}: loss {loss}, grad norm {gnorm}")
-    require(min(gnorm) > 0, f"{what}: zero gradient norm {gnorm}")
+    ref_nan = check_steps(probe, [warm] + metrics, what)
+    del probe
+    finite = [g for g in gnorm if np.isfinite(g)]
+    require(min(finite, default=1.0) > 0, f"{what}: zero gradient norm {gnorm}")
     one_solve_a_call(launches, what)
     require(per_step["lm_solve"] == 1 and per_step["instance_norm_stats"] > 0,
             f"{what}: launches {launches}")
@@ -2243,7 +2463,7 @@ def train_run(dev, smi, phase, name, cfg, sd, batch, live):
                      "mixed_precision", "use_weights")},
           "timed_steps": TRAIN_TIMED, "step_s": dt / TRAIN_TIMED,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-          "loss_total": loss, "grad_norm": gnorm,
+          "loss_total": loss, "grad_norm": gnorm, "reference_nan": ref_nan,
           "launches_per_step": per_step,
           "lm_iters": {"mean": float(it.float().mean()), "max": int(it.max()),
                        "min": int(it.min())},
@@ -2457,6 +2677,8 @@ def f2m_slam():
     """configuration/infer_scared.yaml's SLAM settings, read from the file,
     with the pool pre-sized to F2M_POOL_FRAMES frames (map_capacity =
     initial_bucket) and the segsort winner, as bench.py's f2m cell does."""
+    from robust_pose_tpu_torch.utils.config import read_yaml
+
     y = read_yaml("configuration/infer_scared.yaml")["slam"]
     require(y["frame2frame"] is False and y["lbgfs_iters"] == 100
             and y["conf_weighing"] is True and y["average_pts"] is False
@@ -2583,6 +2805,266 @@ def phase_f2m(dev, smi):
     return launches, g_launches
 
 
+# ---------------------------------------------------------------------------
+# phase cli
+# ---------------------------------------------------------------------------
+
+DECODE_H, DECODE_W = 2 * H, 2 * W   # StereoMIS-sized decode: ResizeStereo 0.5
+CLI_F2F_FRAMES = 1 + 4 * T_WINDOW   # the first frame and 4 windows
+CLI_F2M_FRAMES = 1 + 2 * T_WINDOW
+PREPROC_TOL = 1e-3                  # bilinear paths, card vs CPU, 0-255 scale
+
+
+class SmoothMaps:
+    """A conventional-mode rectifier's fields for ``DevicePreproc``: a
+    smooth displacement of the identity grid at 512x640 (amplitude 0.75
+    px: the nearest remap moves some pixels by one), built in numpy since
+    ``stereoRectify`` needs cv2."""
+    mode = "conventional"
+
+    def __init__(self, phase=(0.0, 1.3)):
+        ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+        self.maps, self.cal = {}, {}
+        for side, ph in zip("lr", phase):
+            self.maps[side + "map1"] = (xs + 0.75 * np.sin(ys / 23.0 + ph)).astype(np.float32)
+            self.maps[side + "map2"] = (ys + 0.75 * np.cos(xs / 31.0 + ph)).astype(np.float32)
+
+
+class PseudoShift:
+    """A pseudo-mode rectifier's fields: the right camera's principal point
+    (0.5, -0.25) px from the left's, a bilinear shift of the right image."""
+    mode = "pseudo"
+    maps = {}
+    cal = {"lkmat": PRODUCTION_K, "rkmat": PRODUCTION_K + np.array(
+        [[0, 0, -0.5], [0, 0, 0.25], [0, 0, 0]])}
+
+
+def decode_frames(n, seed):
+    """``n`` vertically stacked stereo frames at decode scale (2048 x 1280
+    RGB uint8, top = left) from make_sequence: disparity 16 px and 6 px a
+    frame, so 8 and 3 at 512x640, as phase main's frames."""
+    ls, rs = make_sequence(n, disparity=16, step=6, seed=seed,
+                           h=DECODE_H, w=DECODE_W)
+    return [np.concatenate([l[0], r[0]], axis=0) for l, r in zip(ls, rs)]
+
+
+def preproc_check(dev):
+    """DevicePreproc on the card against the CPU from 1024 x 1280 uint8
+    halves with specular patches, with maps (nearest remap) and with the
+    pseudo shift (bilinear): masks and the nearest-remapped images bit for
+    bit, the bilinear outputs within PREPROC_TOL; then the time of one
+    call on the card (numpy halves in, as the CLI calls it)."""
+    import torch
+
+    from robust_pose_tpu_torch.data.device_preproc import DevicePreproc
+
+    frame = decode_frames(1, seed=21)[0].copy()
+    h, w = DECODE_H // 16, DECODE_W // 16                  # specularities
+    frame[5 * h:6 * h, 8 * w:10 * w] = 255
+    frame[DECODE_H + 11 * h:DECODE_H + 12 * h, 2 * w:3 * w] = 255
+    limg, rimg = frame[:DECODE_H], frame[DECODE_H:]
+    out = {}
+    for name, rect in (("maps", SmoothMaps()), ("pseudo", PseudoShift())):
+        res = {where: DevicePreproc((W, H), rect, device=where)(limg, rimg)
+               for where in ("cuda", "cpu")}
+        card = [t.cpu() for t in res["cuda"]]
+        cpu = res["cpu"]
+        err = [float((a.double() - b.double()).abs().max()) for a, b in
+               zip(card[:2], cpu[:2])]
+        require(card[0].shape == (3, H, W) and card[2].shape == (1, H, W)
+                and card[2].dtype == torch.bool, f"preproc {name}: shapes")
+        require(torch.equal(card[2], cpu[2]), f"preproc {name}: masks differ")
+        require(0 < float(cpu[2].float().mean()) < 1,
+                f"preproc {name}: the mask masks nothing or everything")
+        if name == "maps":
+            require(err == [0.0, 0.0], f"preproc maps: nearest remap err {err}")
+        require(max(err) <= PREPROC_TOL, f"preproc {name}: err {err}")
+        pre = DevicePreproc((W, H), rect, device=dev)
+        call = lambda: pre(limg, rimg)
+        dev_ms, n = device_time_ms(call)
+        out[name] = {"max_abs_err": err, "mask_true_share": float(cpu[2].float().mean()),
+                     "device_ms": dev_ms, "device_ops": n,
+                     "ms": cuda_time_ms(call, reps=10)}
+    return out
+
+
+def memory_video(root, frames, rectify):
+    """The port's StereoVideoDataset over ``frames`` held in memory (its
+    ``_frames`` and ``_frame_count`` overridden), with ``root``'s
+    groundtruth.txt as its poses."""
+    import os
+
+    from robust_pose_tpu_torch.data.video_dataset import StereoVideoDataset
+
+    class MemoryVideo(StereoVideoDataset):
+        def _frame_count(self):
+            return len(frames)
+
+        def _frames(self):
+            yield from frames
+
+    path = os.path.join(root, "sequence.mp4")
+    open(path, "wb").close()
+    return MemoryVideo(path, os.path.join(root, "groundtruth.txt"),
+                       img_size=(W, H), rectify=rectify)
+
+
+def write_groundtruth(root, n):
+    """groundtruth.txt of the sequence: the camera moves 3 px of the
+    512x640 image a frame at depth PRODUCTION_BF / 8, along x; the line
+    stamped k holds frame k + 4's pose (the CLI evaluates at offset -4);
+    n lines, as the video dataset stops where its poses end."""
+    import os
+
+    dx = 3 * (PRODUCTION_BF / 8) / FX / 1000.0            # metres a frame
+    with open(os.path.join(root, "groundtruth.txt"), "w") as f:
+        for k in range(1, n + 1):
+            f.write(f"{k} {(k + 3) * dx!r} 0.0 0.0 0.0 0.0 0.0 1.0\n")
+
+
+def count_windows(record):
+    """Record the launches of every PoseEstimator.track_window call (the
+    counters' deltas); returns the undo."""
+    from robust_pose_tpu_torch.slam.pose_estimator import PoseEstimator as PE
+
+    inner = PE.track_window
+
+    def counted(self, *a, **kw):
+        before = launch_counts()
+        out = inner(self, *a, **kw)
+        after = launch_counts()
+        record.append({k: after[k] - before[k] for k in after})
+        return out
+
+    PE.track_window = counted
+    return lambda: setattr(PE, "track_window", inner)
+
+
+def cli_run(dev, cfg_path, n_frames, rectify, seed):
+    """The port's CLI ``run`` (robust_pose_tpu_torch.scripts.
+    infer_trajectory) on ``cfg_path`` as read, ``--window 8
+    --device-preproc --device cuda``, over ``n_frames`` decode-scale frames
+    from memory, weights through save_checkpoint / load_checkpoint_any: one
+    warm-up pass, then the timed pass with the launch counters set to 0
+    just before and read just after. Returns what it measured."""
+    import contextlib
+    import io
+    import os
+    import re
+    import tempfile
+
+    import torch
+
+    from robust_pose_tpu_torch.scripts import infer_trajectory as cli
+    from robust_pose_tpu_torch.utils.checkpoints import save_checkpoint
+    from robust_pose_tpu_torch.utils.config import read_yaml
+    from robust_pose_tpu_torch.utils.evaluate import evaluate
+    from robust_pose_tpu_torch.utils.profiling import StageTimer
+    from robust_pose_tpu_torch.utils.trajectory import read_freiburg
+
+    config = read_yaml(cfg_path)
+    frames = decode_frames(n_frames, seed)
+    calib = {"intrinsics": {"left": PRODUCTION_K}, "bf": PRODUCTION_BF,
+             "img_size": (W, H)}
+    with tempfile.TemporaryDirectory() as root:
+        model_cfg = production_model_cfg()
+        save_checkpoint(os.path.join(root, "ckpt"),
+                        production_weights(dev, model_cfg),
+                        {"model": model_cfg})
+        write_groundtruth(root, n_frames)
+        for attempt in ("warm-up", "timed"):
+            args = cli.build_parser().parse_args([
+                root, "--checkpoint", os.path.join(root, "ckpt"), "--outpath",
+                os.path.join(root, attempt), "--window", str(T_WINDOW),
+                "--device-preproc", "--device", "cuda"])
+            dataset = memory_video(root, frames, rectify)
+            timer, windows, printed = StageTimer(), [], io.StringIO()
+            undo = count_windows(windows)
+            torch.cuda.synchronize()
+            zero_launch_counts()
+            try:
+                with contextlib.redirect_stdout(printed):
+                    cli.run(args, config, dataset, calib, timer=timer)
+            finally:
+                undo()
+            launches = launch_counts()
+        poses, stamps = read_freiburg(os.path.join(args.outpath, "trajectory.freiburg"),
+                                      ret_stamps=True)
+        ate, rpe_t, rpe_r, pairs, *_ = evaluate(
+            os.path.join(root, "groundtruth.txt"),
+            os.path.join(args.outpath, "trajectory.freiburg"), offset=-4)
+        plys = sorted(f for f in os.listdir(args.outpath) if f.endswith(".ply"))
+    text = printed.getvalue()
+    surfels = re.findall(r"^surfels: .*$", text, re.M)
+    loop_s = timer.totals["loop"]
+    out = dict(frames=n_frames, fps=n_frames / loop_s, loop_s=loop_s,
+               stage_ms=timer.summary(), trajectory_lines=len(poses),
+               ate_rmse_mm=ate, rpe_trans_mm=rpe_t,
+               rpe_rot_deg=float(np.rad2deg(rpe_r)), compared_pairs=len(pairs),
+               printed=[ln for ln in text.splitlines()
+                        if ln.startswith(("ATE/", "surfels: "))],
+               surfel_summary=surfels[0] if surfels else None, plys=plys,
+               launches=launches, windows=windows)
+    require(len(poses) == 1 + n_frames and stamps[0] == 0
+            and list(stamps[1:]) == list(range(1, n_frames + 1)),
+            f"cli {cfg_path}: {len(poses)} trajectory lines, stamps {list(stamps)}")
+    require(bool(np.isfinite(poses).all()), f"cli {cfg_path}: non-finite poses")
+    require(all(np.isfinite([ate, rpe_t, rpe_r])) and len(pairs) > 1,
+            f"cli {cfg_path}: ATE {ate}, RPE {rpe_t} {rpe_r} over {len(pairs)}")
+    require(text.rstrip().endswith("finished") and "ATE/RMSE" in text,
+            f"cli {cfg_path}: printed {text[-300:]}")
+    return out
+
+
+def phase_cli(dev, smi):
+    """The port's trajectory-inference CLI at full width: DevicePreproc
+    card against CPU; ``run`` on infer_f2f.yaml (CLI_F2F_FRAMES frames:
+    K1, K2 and the LM solve counted a window) and on infer_scared.yaml
+    (CLI_F2M_FRAMES frames, its own pool size), each beside phase main's
+    FPS of this run."""
+    import torch
+
+    t0 = time.perf_counter()
+    pre = preproc_check(dev)
+    f2f = cli_run(dev, "configuration/infer_f2f.yaml", CLI_F2F_FRAMES,
+                  SmoothMaps(), seed=31)
+    n_win = (CLI_F2F_FRAMES - 1) // T_WINDOW
+    lc = f2f["launches"]
+    require(len(f2f["windows"]) == n_win, f"cli f2f: {len(f2f['windows'])} windows")
+    for w in f2f["windows"]:
+        require(w["corr_window_lookup"] == 12 and w["instance_norm_stats"] == 15
+                and w["lm_solve"] == 1 and w["normal_eq"] == 0,
+                f"cli f2f: window launches {w}")
+    one_solve_a_call(lc, "cli f2f")
+    require(lc["lm_solve"] == n_win, f"cli f2f: launches {lc}")
+    per_window = {k: f2f["windows"][0][k] for k in (
+        "corr_window_lookup", "instance_norm_stats", "lm_solve")}
+    emit({"phase": "cli", "part": "preproc", "card": smi,
+          "decode": [DECODE_H, DECODE_W], "out": [H, W], "tol": PREPROC_TOL,
+          **pre})
+    emit({"phase": "cli", "part": "f2f", "card": smi, "shape": [H, W],
+          "config": "configuration/infer_f2f.yaml", "window": T_WINDOW,
+          "launches_per_window": per_window,
+          "main_fps": MAIN_FPS.get("main"),
+          **{k: v for k, v in f2f.items() if k != "windows"}})
+    torch.cuda.empty_cache()
+
+    f2m = cli_run(dev, "configuration/infer_scared.yaml", CLI_F2M_FRAMES,
+                  PseudoShift(), seed=41)
+    reruns = sum(f2m_reruns(w, "corr_window_lookup", 1) for w in f2m["windows"])
+    require(f2m["surfel_summary"] is not None
+            and f2m["plys"] == ["all_map.ply", "stable_map.ply"],
+            f"cli f2m: summary {f2m['surfel_summary']}, plys {f2m['plys']}")
+    one_solve_a_call(f2m["launches"], "cli f2m")
+    emit({"phase": "cli", "part": "f2m", "card": smi, "shape": [H, W],
+          "config": "configuration/infer_scared.yaml", "window": T_WINDOW,
+          "window_loop_reruns": reruns, "main_fps": MAIN_FPS.get("main"),
+          "seconds": time.perf_counter() - t0,
+          **{k: v for k, v in f2m.items() if k != "windows"}})
+    torch.cuda.empty_cache()
+    return per_window
+
+
 def main():
     import torch
 
@@ -2600,6 +3082,16 @@ def main():
         for _ in range(3):
             phase_kernels(dev)
         return 0
+    if sys.argv[1:] == ["small_train"]:
+        # RAFT small's training step, many times over (ROADMAP section C);
+        # prints no result line
+        phase_small_train_repro(dev, smi)
+        return 0
+    if sys.argv[1:] == ["cli"]:
+        # phase main (for its FPS) and the CLI phase; no result line
+        phase_main(dev, smi)
+        phase_cli(dev, smi)
+        return 0
     kernels = phase_kernels(dev)
     phase_slice(dev)
     launches = phase_main(dev, smi)
@@ -2611,6 +3103,7 @@ def main():
     phase_train_slice(dev, small=True)
     small_f2f, small_train = phase_small(dev, smi)
     phase_checkpoints(dev, *small_case)
+    phase_cli(dev, smi)
     # each kernel's launches on its own path: K1-K3 in the f2f main path
     # (K3: the LM solve kernel, one launch a window, every build inside),
     # K4-K5 in the training step with live RAFT, K7 in the f2m window with

@@ -169,3 +169,91 @@ def normalize(g: Tensor) -> Tensor:
 def retract(eps: Tensor, g: Tensor) -> Tensor:
     """Left-multiplicative retraction exp(eps) * g."""
     return mul(exp(eps), g)
+
+
+_EPS = 1e-8
+
+
+def quat_to_matrix(q: Tensor) -> Tensor:
+    """xyzw quaternion -> (..., 3, 3) rotation matrix."""
+    x, y, z, w = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack([
+        1.0 - 2.0 * (yy + zz), 2.0 * (xy - wz), 2.0 * (xz + wy),
+        2.0 * (xy + wz), 1.0 - 2.0 * (xx + zz), 2.0 * (yz - wx),
+        2.0 * (xz - wy), 2.0 * (yz + wx), 1.0 - 2.0 * (xx + yy),
+    ], dim=-1)
+    return m.reshape(*q.shape[:-1], 3, 3)
+
+
+def quat_from_matrix(m: Tensor) -> Tensor:
+    """(..., 3, 3) rotation matrix -> xyzw quaternion, branch-free: of the
+    four standard constructions each element takes the one whose squared
+    component is largest."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    sq = [torch.clamp(1.0 + tr, min=0.0),
+          torch.clamp(1.0 + m00 - m11 - m22, min=0.0),
+          torch.clamp(1.0 - m00 + m11 - m22, min=0.0),
+          torch.clamp(1.0 - m00 - m11 + m22, min=0.0)]
+    s = [2.0 * _safe_sqrt(v) for v in sq]
+    d = [torch.clamp(v, min=_EPS) for v in s]
+    cands = torch.stack([
+        torch.stack([(m21 - m12) / d[0], (m02 - m20) / d[0],
+                     (m10 - m01) / d[0], 0.25 * s[0]], dim=-1),
+        torch.stack([0.25 * s[1], (m01 + m10) / d[1],
+                     (m02 + m20) / d[1], (m21 - m12) / d[1]], dim=-1),
+        torch.stack([(m01 + m10) / d[2], 0.25 * s[2],
+                     (m12 + m21) / d[2], (m02 - m20) / d[2]], dim=-1),
+        torch.stack([(m02 + m20) / d[3], (m12 + m21) / d[3],
+                     0.25 * s[3], (m10 - m01) / d[3]], dim=-1),
+    ], dim=-2)                                           # (..., 4, 4)
+    best = torch.argmax(torch.stack(sq, dim=-1), dim=-1)
+    idx = best[..., None, None].expand(*best.shape, 1, 4)
+    q = torch.gather(cands, -2, idx)[..., 0, :]
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def skew(w: Tensor) -> Tensor:
+    """(..., 3) -> (..., 3, 3) cross-product matrix."""
+    x, y, z = w.unbind(-1)
+    zero = torch.zeros_like(x)
+    m = torch.stack([zero, -z, y, z, zero, -x, -y, x, zero], dim=-1)
+    return m.reshape(*w.shape[:-1], 3, 3)
+
+
+def matrix(g: Tensor) -> Tensor:
+    """(..., 7) -> homogeneous (..., 4, 4)."""
+    R = quat_to_matrix(g[..., 3:7])
+    top = torch.cat([R, g[..., :3, None]], dim=-1)
+    bottom = torch.zeros((*g.shape[:-1], 1, 4), dtype=g.dtype, device=g.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)
+
+
+def from_matrix(m: Tensor) -> Tensor:
+    """Homogeneous (..., 4, 4) -> (..., 7)."""
+    return torch.cat([m[..., :3, 3], quat_from_matrix(m[..., :3, :3])], dim=-1)
+
+
+def adjoint(g: Tensor) -> Tensor:
+    """(..., 7) -> (..., 6, 6) adjoint for [v, w]-ordered tangents."""
+    R = quat_to_matrix(g[..., 3:7])
+    tR = torch.matmul(skew(g[..., :3]), R)
+    top = torch.cat([R, tR], dim=-1)
+    bottom = torch.cat([torch.zeros_like(R), R], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def random(generator: torch.Generator, shape=(), sigma: float = 1.0,
+           dtype=torch.float32) -> Tensor:
+    """Random group elements exp(N(0, sigma^2)) drawn from ``generator``
+    on its device (the JAX package draws from a PRNG key; the
+    distribution is the same, the bits are not)."""
+    tau = sigma * torch.randn((*shape, 6), generator=generator, dtype=dtype,
+                              device=generator.device)
+    return exp(tau)

@@ -62,7 +62,7 @@ class PoseEstimator:
         self.config = config
         self.model_config = model_config
         self.model = PoseNet(model_config, device=self.device)
-        self.model.load_state_dict(checkpoint["state_dict"])
+        self._load_weights(checkpoint["state_dict"])
 
         self.intrinsics = torch.as_tensor(
             np.asarray(intrinsics, np.float32), device=self.device)[None]
@@ -80,6 +80,18 @@ class PoseEstimator:
         self._feats = None
         self._model_frame: Optional[Frame] = None   # carried f2m reference
         self.last_solver_iters = None
+
+    def _load_weights(self, state_dict):
+        """Load the checkpoint's weights; without confidence weighting the
+        weight heads never run, and a checkpoint may lack them (a JAX
+        model built with ``use_weights: False`` has none), as flax needs
+        no parameters for a module it does not call."""
+        missing, unexpected = self.model.load_state_dict(state_dict, strict=False)
+        if not self.model_config["use_weights"]:
+            missing = [k for k in missing if not k.startswith("weight_head_")]
+        if missing or unexpected:
+            raise RuntimeError(f"checkpoint: missing {missing[:8]}, "
+                               f"unexpected {unexpected[:8]}")
 
     def _tensor(self, x, dtype):
         return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x

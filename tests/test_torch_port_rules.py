@@ -23,13 +23,15 @@ def _modules():
 def test_importing_every_module_loads_no_jax():
     """A fresh interpreter imports every module of the port (and runs
     nothing else); afterwards neither jax, flax, msgpack nor robust_pose_tpu
-    is in sys.modules."""
+    is in sys.modules, and no cv2 either: the card's machine has no
+    OpenCV, so the host data modules import it inside the functions that
+    decode, remap or write images."""
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'msgpack', 'robust_pose_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'msgpack', 'robust_pose_tpu', 'cv2'))\n"
         "print('LOADED', bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
