@@ -8,6 +8,7 @@
                                     # step 96 times a remat_policy from
                                     # 48 fresh trainers; no result line
     python3 chip_smoke.py cli       # phases 1, 4 and 14; no result line
+    python3 chip_smoke.py train_cli # phases 1, 7 and 16; no result line
 
 Phases, each printing one JSON line:
 
@@ -123,6 +124,23 @@ Phases, each printing one JSON line:
                   one warm-up pass and one timed, each with FPS (host
                   clock around the loop, ending in a synchronize) beside
                   phase main's, stage means, ATE/RPE and launches.
+15. ops_tail   -- the small ops off the main paths (ops/image, ops/
+                  geometry.reproject, the three warps, ops/interpolation,
+                  raft.lookup_corr_gather, PoseNet.run_flow) on the card
+                  against the CPU at 64x96: nearest samples, medians and
+                  validity bit for bit, the rest within a stated tolerance.
+16. train_cli  -- the training CLI (robust_pose_tpu_torch.scripts.
+                  train_posenet.run) at full width on configuration/
+                  train.yaml as read (freeze_flow_steps 10^18: lookup "xla",
+                  remat, RAFT's gradients live and masked), then with
+                  train.stop_flow_grad (K1): two training sequences and one
+                  validation sequence of make_sequence frames in memory,
+                  4 steps, validation every 2; the steps' launches, RAFT
+                  unmoved, the best / last bundles reloaded bit for bit;
+                  seconds a step by stage (data, step, log, val) beside
+                  phase train's (a) and (b), peak memory; then
+                  bench_train_step at batch 8 (remat and no-remat peaks,
+                  as is and with --live-flow-grads).
 
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 Every failed check raises: the script exits non-zero and prints no result.
@@ -2396,6 +2414,9 @@ def check_steps(probe, metrics, what):
     return None
 
 
+TRAIN_STEP_S = {}             # train_run's seconds a step of this run, by phase
+
+
 def train_run(dev, smi, phase, name, cfg, sd, batch, live):
     """One training configuration at full width: 1 warm-up and TRAIN_TIMED
     timed steps with the launch counters set to 0 just before and read just
@@ -2426,6 +2447,7 @@ def train_run(dev, smi, phase, name, cfg, sd, batch, live):
     dt = time.perf_counter() - t0
     launches = launch_counts()
     probe.remove()
+    TRAIN_STEP_S[f"{phase} {name}"] = dt / TRAIN_TIMED
     loss = [float(mt["train/loss_total"]) for mt in metrics]
     gnorm = [float(mt["train/grad_norm"]) for mt in metrics]
     it = tr.last_solver_iters.cpu()
@@ -3065,6 +3087,405 @@ def phase_cli(dev, smi):
     return per_window
 
 
+# ---------------------------------------------------------------------------
+# phases 15 and 16
+# ---------------------------------------------------------------------------
+
+OPS_TAIL_TOL = 1e-5           # bilinear, conv and lookup outputs, card vs CPU
+RUN_FLOW_TOL = 1e-3           # px: RAFT's flow, card (K1) vs CPU (plain)
+
+
+def phase_ops_tail(dev):
+    """The small ops outside the main paths on the card against the CPU at
+    64x96, f32, TF32 off: ops/image (Sobel gradients, batched dot product,
+    identity), ops/geometry.reproject, the three warps, ops/interpolation,
+    models/raft.lookup_corr_gather and PoseNet.run_flow (with flow2depth
+    on it). Nearest samples, medians, validity masks and the identity bit
+    for bit; bilinear, conv and lookup outputs within OPS_TAIL_TOL;
+    reproject within OPS_TAIL_TOL (its bits reported); RAFT's flow within
+    RUN_FLOW_TOL px."""
+    import torch
+
+    from robust_pose_tpu_torch.models import raft
+    from robust_pose_tpu_torch.models.posenet import PoseNet
+    from robust_pose_tpu_torch.ops import geometry, image, interpolation, warp
+
+    h, w = 64, 96
+    rng = np.random.default_rng(17)
+    f32 = lambda *shape: torch.from_numpy(
+        rng.uniform(0.0, 1.0, shape).astype(np.float32))
+    x = f32(2, h, w, 3)
+    x[:, :6, :6] = 0.0                         # validity takes both values
+    nx = (f32(2, h, w, 2) > 0.5).float()
+    flow = 12.0 * f32(2, h, w, 2) - 6.0
+    holes = f32(2, h, w, 2)
+    holes[f32(2, h, w, 2) < 0.2] = float("nan")
+    depth = 0.1 + f32(2, 1, h, w)
+    K = torch.tensor([[100.5, 0.0, 47.25], [0.0, 99.75, 31.5], [0.0, 0.0, 1.0]])
+    grid = torch.meshgrid(torch.arange(w // 8.0), torch.arange(h // 8.0),
+                          indexing="xy")
+    coords8 = torch.stack(grid, -1)[None] + 6.0 * f32(2, h // 8, w // 8, 2) - 3.0
+    fm = [f32(2, h // 8, w // 8, 64) for _ in range(2)]
+    cases = {
+        "image_gradient": (image.image_gradient, (x.permute(0, 3, 1, 2),), "tol"),
+        "batched_dot_product": (image.batched_dot_product,
+                                (f32(2, h * w, 3), f32(2, h * w, 3)), "tol"),
+        "reproject": (lambda d, k: geometry.reproject(
+            d, k, geometry.create_img_coords(h, w, device=d.device)), (depth, K), "tol"),
+        "warp_bilinear_nearest": (warp.warp_bilinear_nearest, (x, nx, flow),
+                                  "tol,bits,bits,bits"),
+        "remap_from_flow": (warp.remap_from_flow, (x, flow), "tol,bits"),
+        "remap_from_flow_nearest": (warp.remap_from_flow_nearest, (x, flow),
+                                    "bits,bits"),
+        "sparse_img_interpolate": (interpolation.sparse_img_interpolate,
+                                   (holes,), "tol"),
+        "median_filter_2d": (lambda a: interpolation.median_filter_2d(a, 5), (x,), "bits"),
+        "sparse_median_interpolate": (interpolation.sparse_median_interpolate,
+                                      (holes,), "bits"),
+        "lookup_corr_gather": (lambda a, b, c: raft.lookup_corr_gather(
+            raft.build_corr_pyramid(a, b), c), (*fm, coords8), "tol"),
+    }
+    out = {}
+    for name, (fn, args, how) in cases.items():
+        cpu = fn(*args)
+        card = fn(*(a.to(dev) for a in args))
+        cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+        card = card if isinstance(card, tuple) else (card,)
+        res = []
+        for c, g, kind in zip(cpu, card, how.split(",")):
+            g = g.cpu()
+            bits = torch.equal(c, g)
+            err = float((c.double() - g.double()).abs().max())
+            require(bits if kind == "bits" else err <= OPS_TAIL_TOL,
+                    f"ops_tail {name}: card vs CPU {err} ({kind})")
+            res.append({"kind": kind, "max_abs_err": err, "bits_equal": bits})
+        out[name] = res
+    eye = image.beye(3, 4, device=dev)
+    require(torch.equal(eye.cpu(), image.beye(3, 4)), "ops_tail: beye")
+
+    cfg = {"image_shape": (h, w), "iters": 2, "unet_levels": 1,
+           "mixed_precision": False, "lookup": "onthefly"}
+    sd = small_state_dict(cfg, seed=19)
+    ls, rs = make_sequence(1, disparity=3, step=2, seed=7, h=h, w=w)
+    i1, i2 = (torch.from_numpy(a[:, 0]).float() for a in (ls, rs))
+    flows = {}
+    for where in ("cpu", dev):
+        m = PoseNet(cfg, device=where)
+        m.load_state_dict(sd)
+        zero_launch_counts()
+        with torch.no_grad():
+            fl, hidden, context = m.run_flow(i1.to(where), i2.to(where))
+            d, valid, f2d = m.flow2depth(i1.to(where), i2.to(where),
+                                         torch.ones(1, device=where))
+        require(torch.equal(f2d, fl) and torch.equal(
+            d, PoseNet.disparity_to_depth(fl, torch.ones(1, device=where))[0]),
+            f"ops_tail: flow2depth is not run_flow on {where}")
+        flows[str(where)] = (fl.cpu(), hidden.cpu(), launch_counts()["corr_window_lookup"])
+    (fc, hc, kc), (fg, hg, kg) = flows["cpu"], flows[str(dev)]
+    err = float((fc - fg).abs().max())
+    # K1: one launch a lookup, iters lookups in run_flow and in flow2depth
+    require(err <= RUN_FLOW_TOL and kc == 0 and kg == 2 * cfg["iters"],
+            f"ops_tail run_flow: flow error {err} px, K1 launches {kc}, {kg}")
+    out["run_flow"] = [{"kind": "tol", "max_abs_err": err,
+                        "hidden_max_abs_err": float((hc - hg).abs().max()),
+                        "k1_launches_cuda": kg}]
+    emit({"phase": "ops_tail", "shape": [h, w], "tol": OPS_TAIL_TOL,
+          "run_flow_tol_px": RUN_FLOW_TOL, "cases": out})
+
+
+TRAIN_CLI_STEPS = 4           # train.epochs 3: the loop stops past its count
+TRAIN_CLI_SAMPLES = 40        # data.train.samples a sequence (2000 in the file)
+TRAIN_CLI_VAL = 20            # data.val.samples (80 in the file), 2 batches of 10
+TRAIN_CLI_VAL_FREQ = 2        # validations after steps 1 and 3
+TRAIN_CLI_BF = 800.0          # baseline x focal: depth 100 mm at 8 px disparity
+TRAIN_CLI_FRAMES = (48, 48, 24)
+
+
+def memory_pose_dataset(root, frames, cfg, rng):
+    """The port's PoseDataset over a folder of placeholder PNG names and a
+    real groundtruth.txt, its images served from ``frames`` ((left, right)
+    uint8 (T, 1, H, W, 3) arrays)."""
+    import os
+
+    from robust_pose_tpu_torch.data.train_datasets import PoseDataset
+
+    class MemoryPoseDataset(PoseDataset):
+        def _read_img(self, path):
+            name = os.path.basename(path)
+            eye = frames[0] if name.endswith("l.png") else frames[1]
+            img = eye[int(name[:-len("l.png")]) - 1, 0]
+            return img.transpose(2, 0, 1).astype(np.float32)
+
+    return MemoryPoseDataset(root, TRAIN_CLI_BF, PRODUCTION_K, 250.0, 0.0,
+                             cfg["step"], (H, W), cfg["samples"], rng=rng)
+
+
+def write_pose_sequence(root, n):
+    """``video_frames/NNNNNNl.png`` / ``r.png`` placeholders and the
+    groundtruth.txt of make_sequence's camera: 3 px a frame along x at
+    depth TRAIN_CLI_BF / 8 (metres in the file)."""
+    import os
+
+    os.makedirs(os.path.join(root, "video_frames"))
+    for k in range(1, n + 1):
+        for eye in "lr":
+            path = os.path.join(root, "video_frames", f"{k:06d}{eye}.png")
+            open(path, "wb").close()
+    dx = -3 * (TRAIN_CLI_BF / 8) / FX / 1000.0
+    with open(os.path.join(root, "groundtruth.txt"), "w") as f:
+        for k in range(1, n + 1):
+            f.write(f"{k} {(k - 1) * dx!r} 0.0 0.0 0.0 0.0 0.0 1.0\n")
+
+
+class StepTimer:
+    """A StageTimer that also keeps every stage's durations in order."""
+
+    def __init__(self):
+        from robust_pose_tpu_torch.utils.profiling import StageTimer
+
+        self.inner, self.each = StageTimer(), {}
+
+    def stage(self, name, sync=None):
+        import contextlib
+
+        @contextlib.contextmanager
+        def timed():
+            t0 = time.perf_counter()
+            with self.inner.stage(name, sync):
+                yield
+            self.each.setdefault(name, []).append(time.perf_counter() - t0)
+
+        return timed()
+
+
+def watch_train_cli(record):
+    """Record, for every PoseNetTrainer of the CLI: a StepProbe (installed
+    by init_state), each train_step's metrics and launch deltas, and each
+    validation's loss, launch delta and weights (on the CPU). Returns the
+    undo."""
+    from robust_pose_tpu_torch.scripts import train_posenet as cli
+    from robust_pose_tpu_torch.train.trainer import PoseNetTrainer as PT
+
+    init, step, val = PT.init_state, PT.train_step, cli.run_val
+
+    def init_probed(self, *a, **kw):
+        st = init(self, *a, **kw)
+        record["probe"] = StepProbe(self)
+        return st
+
+    def step_counted(self, *a, **kw):
+        before = launch_counts()
+        state, metrics = step(self, *a, **kw)
+        after = launch_counts()
+        record["steps"].append({k: after[k] - before[k] for k in after})
+        record["metrics"].append(metrics)
+        return state, metrics
+
+    def val_recorded(trainer, *a, **kw):
+        before = launch_counts()
+        loss = val(trainer, *a, **kw)
+        after = launch_counts()
+        record["vals"].append({
+            "loss": loss, "launches": {k: after[k] - before[k] for k in after},
+            "weights": {k: v.detach().cpu().clone()
+                        for k, v in trainer.model.state_dict().items()}})
+        return loss
+
+    PT.init_state, PT.train_step, cli.run_val = init_probed, step_counted, val_recorded
+
+    def undo():
+        PT.init_state, PT.train_step, cli.run_val = init, step, val
+        if "probe" in record:
+            record["probe"].remove()
+
+    return undo
+
+
+def train_cli_run(dev, smi, name, cfg, sd, data, live):
+    """The port's training CLI ``run`` (robust_pose_tpu_torch.scripts.
+    train_posenet) on ``cfg`` with TRAIN_CLI_STEPS steps, validation every
+    TRAIN_CLI_VAL_FREQ, the weights through save_checkpoint and
+    --restore_ckpt, every launch counter set to 0 just before and read just
+    after. Checks: the step count; every step's loss and gradient norm
+    finite (but where reference_nan holds); RAFT bit-equal to the
+    checkpoint; the heads moved; every validation loss finite; the best and
+    the last bundle reload with load_checkpoint_any to the weights of their
+    validation, bit for bit; the launches a step. Returns what it
+    measured."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import torch
+
+    from robust_pose_tpu_torch.scripts import train_posenet as cli
+    from robust_pose_tpu_torch.utils.checkpoints import (
+        load_checkpoint_any,
+        save_checkpoint,
+    )
+
+    what = f"train_cli {name}"
+    iters = cfg["model"]["iters"]
+    record = {"steps": [], "metrics": [], "vals": []}
+    timer = StepTimer()
+    with tempfile.TemporaryDirectory() as root:
+        save_checkpoint(os.path.join(root, "init"), sd, {"model": cfg["model"]})
+        args = cli.build_parser().parse_args([
+            "--name", "posenet", "--outpath", os.path.join(root, "out"),
+            "--restore_ckpt", os.path.join(root, "init")])
+        undo = watch_train_cli(record)
+        val_freq, cli.VAL_FREQ = cli.VAL_FREQ, TRAIN_CLI_VAL_FREQ
+        printed = io.StringIO()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(printed):
+                state = cli.run(args, cfg, *data, timer=timer)
+            torch.cuda.synchronize()
+            loop_s = time.perf_counter() - t0
+            launches = launch_counts()
+        finally:
+            cli.VAL_FREQ = val_freq
+            undo()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        bundles = {b: load_checkpoint_any(os.path.join(root, "out", b))
+                   ["state_dict"] for b in ("posenet", "posenet_last")}
+    probe = record.pop("probe")
+    metrics = record["metrics"]
+    require(state.step == TRAIN_CLI_STEPS == len(metrics),
+            f"{what}: {state.step} steps, {len(metrics)} recorded")
+    ref_nan = check_steps(probe, metrics, what)
+    del probe
+    flow_moved = [k for k, v in state.params.items()
+                  if k.startswith("flow.") and not torch.equal(v.detach().cpu(), sd[k])]
+    heads_moved = [k for k, v in state.params.items()
+                   if not k.startswith("flow.") and not torch.equal(v.detach().cpu(), sd[k])]
+    require(not flow_moved, f"{what}: RAFT parameters moved: {flow_moved[:3]}")
+    require(heads_moved, f"{what}: no head parameter moved")
+    losses = [v["loss"] for v in record["vals"]]
+    require(len(losses) == 2 and all(np.isfinite(losses)),
+            f"{what}: validation losses {losses}")
+    best = min(range(len(losses)), key=lambda i: (losses[i], i))
+    for b, i in (("posenet", best), ("posenet_last", len(losses) - 1)):
+        want = record["vals"][i]["weights"]
+        require(set(bundles[b]) == set(want) and all(
+            torch.equal(bundles[b][k], want[k]) for k in want),
+            f"{what}: bundle {b} is not the weights of validation {i}")
+    one_solve_a_call(launches, what)
+    for i, lc in enumerate(record["steps"]):
+        k1 = lc["corr_window_lookup"]
+        require(lc["lm_solve"] == 1 and lc["instance_norm_stats"] > 0
+                and lc["normal_eq"] == 0 and k1 == (0 if live else iters)
+                and lc["lanewise_lookup"] == lc["lanewise_lookup_bwd"] == 0,
+                f"{what}: step {i} launches {lc}")
+    per_step = {k: record["steps"][1][k] for k in (
+        "corr_window_lookup", "instance_norm_stats", "lm_solve")}
+    per_val = {k: record["vals"][0]["launches"][k] for k in per_step}
+    # the timed steps: all but the first (warm-up); each ends in the log
+    # stage's metric read back, a synchronize
+    each = timer.each
+    step_s = [each["data"][i] + each["step"][i] + each["log"][i]
+              for i in range(1, TRAIN_CLI_STEPS)]
+    out = {"phase": "train_cli", "config": name, "card": smi,
+           "shape": [H, W], "batch": cfg["train"]["batch_size"],
+           "model": {"lookup": "xla" if live else "auto (onthefly)",
+                     "stop_flow_grad": not live, "remat": live,
+                     "iters": iters, "lbgfs_iters": cfg["model"]["lbgfs_iters"]},
+           "steps": TRAIN_CLI_STEPS, "timed_steps": len(step_s),
+           "step_s": float(np.mean(step_s)), "step_s_each": step_s,
+           "stage_s_each": {k: v for k, v in each.items()},
+           "val_s": each["val"], "loop_s": loop_s,
+           "bare_step_s": {k: TRAIN_STEP_S.get(f"train {k}") for k in "ab"},
+           "peak_mem_gib": peak,
+           "loss_total": [float(m["train/loss_total"]) for m in metrics],
+           "grad_norm": [float(m["train/grad_norm"]) for m in metrics],
+           "reference_nan": ref_nan, "val_losses": losses, "best_val": best,
+           "launches_per_step": per_step, "launches_per_validation": per_val,
+           "launches": launches,
+           "printed": printed.getvalue().splitlines()[:2]}
+    emit(out)
+    return out
+
+
+def bench_train_step_run(extra):
+    """robust_pose_tpu_torch.scripts.bench_train_step.main at batch 8, 2
+    timed steps, with ``extra`` flags; the launch counters over it."""
+    import contextlib
+    import io
+
+    from robust_pose_tpu_torch.scripts import bench_train_step
+
+    printed = io.StringIO()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        res = bench_train_step.main(["--batch", str(TRAIN_BATCH), "--steps", "2",
+                                     *extra])
+    res.update(flags=extra, seconds=time.perf_counter() - t0,
+               launches=launch_counts(), printed=printed.getvalue().splitlines())
+    require(res["remat"]["fits"] and np.isfinite(res["remat"]["ms"]),
+            f"bench_train_step {extra}: {res}")
+    return res
+
+
+def phase_train_cli(dev, smi):
+    """The training CLI at full width on configuration/train.yaml as read
+    (512x640, batch 8, 12 GRU iterations, 100 LM iterations, weight heads,
+    freeze_flow_steps 10^18: lookup "xla" and remat with RAFT's gradients
+    live and masked), from two training sequences and one validation
+    sequence of make_sequence frames held in memory (placeholder PNG
+    names, a real groundtruth.txt, the intrinsics and bf given directly).
+    Cut: 4 steps, 40 training samples a sequence, 20 validation samples at
+    the file's val.batch_size 10, validation every 2 steps. Run 1 as read,
+    run 2 with train.stop_flow_grad (K1 inside the CLI). Then
+    bench_train_step at batch 8, as is and with --live-flow-grads."""
+    import copy
+
+    import torch
+
+    import tempfile
+
+    from robust_pose_tpu_torch.data.train_datasets import ConcatDataset
+    from robust_pose_tpu_torch.utils.config import read_yaml
+
+    y = read_yaml("configuration/train.yaml")
+    require(y["train"]["batch_size"] == TRAIN_BATCH and y["val"]["batch_size"] == 10
+            and tuple(y["image_shape"]) == (H, W)
+            and y["train"]["freeze_flow_steps"] == 10 ** 18, "train.yaml changed")
+    cfg = copy.deepcopy(y)
+    cfg["train"]["epochs"] = TRAIN_CLI_STEPS - 1
+    cfg["data"]["train"]["samples"] = TRAIN_CLI_SAMPLES
+    cfg["data"]["val"]["samples"] = TRAIN_CLI_VAL
+    sd = train_weights_full(cfg["model"])
+    t0 = time.perf_counter()
+    runs = {}
+    with tempfile.TemporaryDirectory() as root:
+        data = []
+        for i, n in enumerate(TRAIN_CLI_FRAMES):
+            split = cfg["data"]["train" if i < 2 else "val"]
+            seq = f"{root}/seq{i}"
+            write_pose_sequence(seq, n)
+            frames = make_sequence(n, disparity=8, step=3, seed=50 + i)
+            data.append(memory_pose_dataset(seq, frames, split,
+                                            np.random.default_rng(1234 + i)))
+        data = (ConcatDataset(data[:2]), ConcatDataset(data[2:]))
+        require(len(data[0]) == 2 * TRAIN_CLI_SAMPLES and len(data[1]) == TRAIN_CLI_VAL,
+                f"train_cli: {len(data[0])} / {len(data[1])} samples")
+        for name, live in (("as_read", True), ("stop_flow_grad", False)):
+            c = copy.deepcopy(cfg)
+            if not live:
+                c["train"]["stop_flow_grad"] = True
+            runs[name] = train_cli_run(dev, smi, name, c, sd, data, live)
+            torch.cuda.empty_cache()
+    bench = [bench_train_step_run([]), bench_train_step_run(["--live-flow-grads"])]
+    emit({"phase": "train_cli", "part": "bench_train_step", "card": smi,
+          "runs": bench, "seconds": time.perf_counter() - t0})
+    return runs, bench
+
+
 def main():
     import torch
 
@@ -3092,6 +3513,11 @@ def main():
         phase_main(dev, smi)
         phase_cli(dev, smi)
         return 0
+    if sys.argv[1:] == ["train_cli"]:
+        # phase train (the bare step) and the training CLI; no result line
+        phase_train(dev, smi)
+        phase_train_cli(dev, smi)
+        return 0
     kernels = phase_kernels(dev)
     phase_slice(dev)
     launches = phase_main(dev, smi)
@@ -3104,6 +3530,8 @@ def main():
     small_f2f, small_train = phase_small(dev, smi)
     phase_checkpoints(dev, *small_case)
     phase_cli(dev, smi)
+    phase_ops_tail(dev)
+    phase_train_cli(dev, smi)
     # each kernel's launches on its own path: K1-K3 in the f2f main path
     # (K3: the LM solve kernel, one launch a window, every build inside),
     # K4-K5 in the training step with live RAFT, K7 in the f2m window with

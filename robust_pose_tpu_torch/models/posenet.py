@@ -100,9 +100,14 @@ class PoseNet(nn.Module):
 
     # building blocks -----------------------------------------------------
 
+    def run_flow(self, img1, img2, train: bool = False):
+        """RAFT pass; returns (flow (B, H, W, 2), hidden (B, H/8, W/8, hdim),
+        context (B, H/8, W/8, cdim))."""
+        return self.flow(img1, img2, train)
+
     def flow2depth(self, imagel, imager, baseline):
         """Stereo flow -> normalized depth; returns (depth, valid, flow)."""
-        flow, _, _ = self.flow(imagel, imager)
+        flow, _, _ = self.run_flow(imagel, imager)
         return self.disparity_to_depth(flow, baseline) + (flow,)
 
     @staticmethod

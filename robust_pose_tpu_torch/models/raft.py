@@ -437,6 +437,45 @@ def lookup_corr(pyramid, coords: Tensor, radius: int = CORR_RADIUS):
     return outs
 
 
+def lookup_corr_gather(pyramid, coords: Tensor) -> Tensor:
+    """Radius-4 bilinear lookup by element gathers with zero padding (the
+    JAX package's ``lookup_corr_gather``: grid_sample's semantics, a test
+    oracle on no path).
+
+    :param pyramid: per-level (B, N, Hl, Wl) volumes
+    :param coords: (B, H, W, 2) (x, y) in 1/8-res pixels
+    :return: (B, H, W, L * 81), each level's window dy-major
+    """
+    b, h, w, _ = coords.shape
+    r = CORR_RADIUS
+    d = 2 * r + 1
+    dx = torch.arange(-r, r + 1, dtype=coords.dtype, device=coords.device)
+    dgrid_y, dgrid_x = torch.meshgrid(dx, dx, indexing="ij")
+    out = []
+    for lvl, corr in enumerate(pyramid):
+        hl, wl = corr.shape[2:]
+        c = coords.reshape(b, h * w, 2) / (2 ** lvl)
+        cx = c[..., 0:1] + dgrid_x.reshape(1, 1, -1)
+        cy = c[..., 1:2] + dgrid_y.reshape(1, 1, -1)
+        x0 = torch.floor(cx)
+        y0 = torch.floor(cy)
+        wx = cx - x0
+        wy = cy - y0
+        flat = corr.reshape(b, h * w, hl * wl)
+
+        def gather(ix, iy):
+            inb = (ix >= 0) & (ix < wl) & (iy >= 0) & (iy < hl)
+            idx = (iy.clamp(0, hl - 1) * wl + ix.clamp(0, wl - 1)).long()
+            return torch.gather(flat, -1, idx) * inb
+
+        v = (gather(x0, y0) * (1 - wx) * (1 - wy)
+             + gather(x0 + 1, y0) * wx * (1 - wy)
+             + gather(x0, y0 + 1) * (1 - wx) * wy
+             + gather(x0 + 1, y0 + 1) * wx * wy)
+        out.append(v.reshape(b, h, w, d * d))
+    return torch.cat(out, dim=-1)
+
+
 def upsample_flow_bilinear(flow: Tensor) -> Tensor:
     """The small variant's 8x upsampling, ``8 * jax.image.resize(flow,
     "linear", antialias=False)``: half-pixel centres, the border rows and

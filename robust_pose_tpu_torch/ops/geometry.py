@@ -69,6 +69,26 @@ def inv_upper3(m: Tensor) -> Tensor:
     return torch.stack([x0, x1, x2])
 
 
+def reproject(depth: Tensor, intrinsics: Tensor, img_coords: Tensor) -> Tensor:
+    """Back-project depth to homogeneous 3D points.
+
+    :param depth: (B, 1, H, W), (B, H, W, 1) or (B, H*W)
+    :param intrinsics: (B, 3, 3) or (3, 3) upper-triangular pinhole matrices
+    :param img_coords: (H*W, 3) homogeneous pixel grid
+    :return: (B, H*W, 4) homogeneous points
+
+    K^-1 comes from ``inv_upper3`` and the rays from ``matvec3``, one matrix
+    at a time: the rounding of the JAX package's LU inverse and its
+    ``HIGHEST``-precision product on the CPU.
+    """
+    b = depth.shape[0]
+    d = depth.reshape(b, -1, 1)
+    ks = intrinsics.reshape(-1, 3, 3)
+    rays = torch.stack([matvec3(inv_upper3(k), img_coords) for k in ks])
+    opts = d * rays
+    return torch.cat([opts, torch.ones_like(opts[..., :1])], dim=-1)
+
+
 def project2image(opts: Tensor, kmat: Tensor, img_shape, pose: Tensor | None = None):
     """Pinhole projection of points (N, 3) by one (3, 3) intrinsics matrix
     and an optional (7,) pose, and the in-image flag.

@@ -163,3 +163,57 @@ def eighth_from_fullres_warp(x_w: Tensor) -> Tensor:
     b, h, w, c = x_w.shape
     cells = x_w.reshape(b, h // 8, 8, w // 8, 8, c)[:, :, 3:5, :, 3:5]
     return cells.mean(dim=(2, 4))
+
+
+def warp_bilinear_nearest(x: Tensor, nearest_x: Tensor | None, flow: Tensor):
+    """Bilinear-sample ``x`` AND nearest-sample ``nearest_x`` at the
+    flow-displaced coordinates from the same four corners (the nearest
+    pixel, ``floor(c + 0.5)``, is always one of the bilinear corners).
+
+    :param x: (B, H, W, C) bilinear payload
+    :param nearest_x: (B, H, W, Cn) nearest payload, or None
+    :param flow: (B, H, W, 2) pixel flow
+    :return: (warped (B, H, W, C), valid (B, H, W, 1), nearest_warped
+        (B, H, W, Cn) or None, nearest_valid or None); valid = any channel
+        > 0
+    """
+    b, h, w, c = x.shape
+    cx, cy = _flow_target_coords(flow)
+    packed = x if nearest_x is None else torch.cat(
+        [x, nearest_x.to(x.dtype)], dim=-1)
+    x0 = torch.floor(cx)
+    y0 = torch.floor(cy)
+    wx = (cx - x0)[..., None]
+    wy = (cy - y0)[..., None]
+    v00 = _gather_pix(packed, x0, y0)
+    v01 = _gather_pix(packed, x0 + 1, y0)
+    v10 = _gather_pix(packed, x0, y0 + 1)
+    v11 = _gather_pix(packed, x0 + 1, y0 + 1)
+    bil = (v00 * (1 - wx) * (1 - wy) + v01 * wx * (1 - wy)
+           + v10 * (1 - wx) * wy + v11 * wx * wy)
+    out = bil[..., :c].reshape(b, h, w, c)
+    valid = torch.any(out > 0, dim=-1, keepdim=True)
+    if nearest_x is None:
+        return out, valid, None, None
+    right = wx >= 0.5
+    down = wy >= 0.5
+    vn = torch.where(down, torch.where(right, v11, v10),
+                     torch.where(right, v01, v00))
+    near = vn[..., c:].reshape(b, h, w, nearest_x.shape[-1])
+    return out, valid, near, torch.any(near > 0, dim=-1, keepdim=True)
+
+
+def remap_from_flow(x: Tensor, flow: Tensor):
+    """Warp ``x (B, H, W, C)`` by bilinear sampling at the flow-displaced
+    coordinates; returns (warped, valid (B, H, W, 1))."""
+    out, valid, _, _ = warp_bilinear_nearest(x, None, flow)
+    return out, valid
+
+
+def remap_from_flow_nearest(x: Tensor, flow: Tensor):
+    """Nearest-neighbour variant of ``remap_from_flow`` (f32 output)."""
+    b, h, w, c = x.shape
+    cx, cy = _flow_target_coords(flow)
+    out = grid_sample(x.to(torch.float32), cx, cy,
+                      mode="nearest").reshape(b, h, w, c)
+    return out, torch.any(out > 0, dim=-1, keepdim=True)
