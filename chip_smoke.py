@@ -9,6 +9,7 @@
                                     # 48 fresh trainers; no result line
     python3 chip_smoke.py cli       # phases 1, 4 and 14; no result line
     python3 chip_smoke.py train_cli # phases 1, 7 and 16; no result line
+    python3 chip_smoke.py bench     # phases 1, 4, 9 and 17; no result line
 
 Phases, each printing one JSON line:
 
@@ -123,12 +124,21 @@ Phases, each printing one JSON line:
                   and infer_scared.yaml (17 frames, its own pool size),
                   one warm-up pass and one timed, each with FPS (host
                   clock around the loop, ending in a synchronize) beside
-                  phase main's, stage means, ATE/RPE and launches.
+                  phase main's, stage means, ATE/RPE and launches. Then
+                  the scenario CLI's row loop (benchmark_scenarios.
+                  run_rows) over two rows of 25 frames served from memory
+                  through a StereoDataset subclass, each row's trajectory
+                  file byte for byte that of a direct run over its range;
+                  and the f2f run with --viewer 2d (a recording stand-in
+                  for Viewer2D: every frame's maps finite, of their
+                  shapes), its FPS beside the plain run's, and the device
+                  time of one window's read-back of the maps.
 15. ops_tail   -- the small ops off the main paths (ops/image, ops/
                   geometry.reproject, the three warps, ops/interpolation,
                   raft.lookup_corr_gather, PoseNet.run_flow) on the card
-                  against the CPU at 64x96: nearest samples, medians and
-                  validity bit for bit, the rest within a stated tolerance.
+                  against the CPU at 64x96: nearest samples, medians (odd
+                  and even windows) and validity bit for bit, the rest
+                  within a stated tolerance.
 16. train_cli  -- the training CLI (robust_pose_tpu_torch.scripts.
                   train_posenet.run) at full width on configuration/
                   train.yaml as read (freeze_flow_steps 10^18: lookup "xla",
@@ -141,6 +151,13 @@ Phases, each printing one JSON line:
                   phase train's (a) and (b), peak memory; then
                   bench_train_step at batch 8 (remat and no-remat peaks,
                   as is and with --live-flow-grads).
+17. bench      -- the port's streaming bench (robust_pose_tpu_torch.
+                  scripts.bench.main, bench.py's defaults) in this process:
+                  its one JSON line with bench.py's keys, FPS finite and
+                  positive, success rates in [0, 1], LM iterations within
+                  20 and 100, each window's launches (12 K1, 15 K2, 1 LM
+                  solve an f2f window; an f2m window its precompute and
+                  loops), printed beside phase main's and f2m's FPS.
 
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 Every failed check raises: the script exits non-zero and prints no result.
@@ -1521,6 +1538,7 @@ def production_weights(dev, model_cfg, disparity=8):
 
 
 MAIN_FPS = {}                 # phase main's (and small's) f2f FPS of this run
+F2M_FPS = {}                  # phase f2m's FPS of this run
 
 
 def phase_main(dev, smi, small=False):
@@ -2771,6 +2789,7 @@ def phase_f2m(dev, smi):
     succ = torch.cat(succs)
     it = torch.cat(iters).cpu()
     st = est.scene.state
+    F2M_FPS["f2m"] = N_TIMED * T_WINDOW / dt
     emit({"phase": "f2m", "card": smi, "shape": [H, W], "window": T_WINDOW,
           "slam": slam, "timed_windows": N_TIMED, "fps": N_TIMED * T_WINDOW / dt,
           "seconds": dt, "success_rate": float(succ.float().mean()),
@@ -2825,6 +2844,96 @@ def phase_f2m(dev, smi):
               "device_ms": [321.1, 461.8], "kernel_ms": [18.3, 18.6],
               "launches": 12884})})
     return launches, g_launches
+
+
+# ---------------------------------------------------------------------------
+# phase bench
+# ---------------------------------------------------------------------------
+
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "f2m_fps_iters100",
+              "f2f_success_rate", "f2m_success_rate", "f2f_lm_iters",
+              "f2m_lm_iters", "f2f_fps_noearlyexit", "f2f_fps_diagnostics",
+              "f2f_fps_diagnostics_nofetch", "d2h_MBps", "f2m_fps_noearlyexit",
+              "f2m_fps_iters20_noearlyexit"}
+BENCH_RATES = ("value", "f2m_fps_iters100", "f2f_fps_noearlyexit",
+               "f2f_fps_diagnostics", "f2f_fps_diagnostics_nofetch",
+               "f2m_fps_noearlyexit", "f2m_fps_iters20_noearlyexit", "d2h_MBps")
+# bench.main's windows: f2f 6 timed, then 4 with diagnostics fetched, 4
+# without the fetch, 4 with early exit off; f2m 4, then 2 and 2 with early
+# exit off (100 and 20 LM iterations); each run after 2 warm-up windows
+BENCH_F2F_WINDOWS = 6 + 4 + 4 + 4 + 4 * 2
+BENCH_F2M_WINDOWS = 4 + 2 + 2 + 3 * 2
+
+
+def phase_bench(dev, smi):
+    """The port's bench (robust_pose_tpu_torch.scripts.bench.main) in this
+    process with bench.py's defaults, its stdout captured, the launch
+    counters set to 0 just before and read just after: one JSON line with
+    bench.py's keys, FPS finite and positive, success rates in [0, 1],
+    realized LM iterations within the caps 20 and 100, and every window's
+    launches (12 K1, 15 K2 and 1 LM solve an f2f window; an f2m window a
+    precompute and its loops). Then the line beside phase main's and phase
+    f2m's FPS of this call; no timing is gated."""
+    import contextlib
+    import io
+
+    import torch
+
+    from robust_pose_tpu_torch.scripts import bench
+
+    printed, windows = io.StringIO(), []
+    undo = count_windows(windows)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            res = bench.main([])
+    finally:
+        undo()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    lines = [ln for ln in printed.getvalue().splitlines() if ln.strip()]
+    require(len(lines) == 1, f"bench: printed {lines}")
+    out = json.loads(lines[0])
+    require(out == res and set(out) == BENCH_KEYS,
+            f"bench: keys {sorted(set(out) ^ BENCH_KEYS)}")
+    require(all(np.isfinite(out[k]) and out[k] > 0 for k in BENCH_RATES),
+            f"bench: rates {out}")
+    require(all(0.0 <= out[k] <= 1.0 for k in ("f2f_success_rate",
+                                                "f2m_success_rate")),
+            f"bench: success rates {out}")
+    require(1 <= out["f2f_lm_iters"]["min"] <= out["f2f_lm_iters"]["max"] <= 20
+            and 1 <= out["f2m_lm_iters"]["min"] <= out["f2m_lm_iters"]["max"] <= 100,
+            f"bench: LM iterations {out['f2f_lm_iters']}, {out['f2m_lm_iters']}")
+    f2f = [w for w in windows if w["frame2frame"]]
+    f2m = [w for w in windows if not w["frame2frame"]]
+    require(len(f2f) == BENCH_F2F_WINDOWS and len(f2m) == BENCH_F2M_WINDOWS,
+            f"bench: {len(f2f)} f2f and {len(f2m)} f2m windows")
+    others = ("lanewise_lookup", "lanewise_lookup_bwd", "pixel_lookup",
+              "grouped_lookup", "normal_eq")
+    for w in f2f:
+        require(w["corr_window_lookup"] == 12 and w["instance_norm_stats"] == 15
+                and w["lm_solve"] == 1 and not any(w[k] for k in others),
+                f"bench: f2f window launches {w}")
+    reruns = 0
+    pre, per = F2M_WINDOW_K2
+    for w in f2m:
+        r = f2m_reruns(w, "corr_window_lookup", 1)
+        require(w["instance_norm_stats"] == pre + per * T_WINDOW * (1 + r)
+                and w["lm_solve"] == T_WINDOW * (1 + r)
+                and not any(w[k] for k in others),
+                f"bench: f2m window launches {w}")
+        reruns += r
+    one_solve_a_call(launches, "bench")
+    emit({"phase": "bench", "card": smi, "bench": out,
+          "main_fps": MAIN_FPS.get("main"), "f2m_fps": F2M_FPS.get("f2m"),
+          "seconds": seconds, "windows": {"f2f": len(f2f), "f2m": len(f2m)},
+          "launches_per_f2f_window": {k: f2f[0][k] for k in (
+              "corr_window_lookup", "instance_norm_stats", "lm_solve")},
+          "f2m_window_loop_reruns": reruns, "launches": launches})
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2944,9 +3053,10 @@ def write_groundtruth(root, n):
             f.write(f"{k} {(k + 3) * dx!r} 0.0 0.0 0.0 0.0 0.0 1.0\n")
 
 
-def count_windows(record):
+def count_windows(record, last=None):
     """Record the launches of every PoseEstimator.track_window call (the
-    counters' deltas); returns the undo."""
+    counters' deltas) and whether it tracked frame to frame; keep the
+    last call's outputs in ``last`` where given. Returns the undo."""
     from robust_pose_tpu_torch.slam.pose_estimator import PoseEstimator as PE
 
     inner = PE.track_window
@@ -2955,20 +3065,25 @@ def count_windows(record):
         before = launch_counts()
         out = inner(self, *a, **kw)
         after = launch_counts()
-        record.append({k: after[k] - before[k] for k in after})
+        record.append({"frame2frame": self.frame2frame,
+                       **{k: after[k] - before[k] for k in after}})
+        if last is not None:
+            last[:] = [out]
         return out
 
     PE.track_window = counted
     return lambda: setattr(PE, "track_window", inner)
 
 
-def cli_run(dev, cfg_path, n_frames, rectify, seed):
+def cli_run(dev, cfg_path, n_frames, rectify, seed, extra=(), last=None):
     """The port's CLI ``run`` (robust_pose_tpu_torch.scripts.
     infer_trajectory) on ``cfg_path`` as read, ``--window 8
-    --device-preproc --device cuda``, over ``n_frames`` decode-scale frames
-    from memory, weights through save_checkpoint / load_checkpoint_any: one
-    warm-up pass, then the timed pass with the launch counters set to 0
-    just before and read just after. Returns what it measured."""
+    --device-preproc --device cuda`` and the flags ``extra``, over
+    ``n_frames`` decode-scale frames from memory, weights through
+    save_checkpoint / load_checkpoint_any: one warm-up pass, then the timed
+    pass with the launch counters set to 0 just before and read just
+    after; the last window's outputs kept in ``last`` where given. Returns
+    what it measured."""
     import contextlib
     import io
     import os
@@ -2998,10 +3113,10 @@ def cli_run(dev, cfg_path, n_frames, rectify, seed):
             args = cli.build_parser().parse_args([
                 root, "--checkpoint", os.path.join(root, "ckpt"), "--outpath",
                 os.path.join(root, attempt), "--window", str(T_WINDOW),
-                "--device-preproc", "--device", "cuda"])
+                "--device-preproc", "--device", "cuda", *extra])
             dataset = memory_video(root, frames, rectify)
             timer, windows, printed = StageTimer(), [], io.StringIO()
-            undo = count_windows(windows)
+            undo = count_windows(windows, last)
             torch.cuda.synchronize()
             zero_launch_counts()
             try:
@@ -3038,12 +3153,171 @@ def cli_run(dev, cfg_path, n_frames, rectify, seed):
     return out
 
 
+CLI_ROW_FRAMES = 25                 # the scenario rows' sequence
+CLI_ROWS = ({"scenario": "breathing", "start": "0", "end": "17"},
+            {"scenario": "tool", "start": "8", "end": "25"})
+
+
+def memory_pngs(ls, rs):
+    """The port's StereoDataset (preprocessed PNGs) over make_sequence
+    frames held in memory (its ``__getitem__`` overridden: no cv2 on the
+    card's machine), so that the CLI's start and stop apply."""
+    from robust_pose_tpu_torch.data.stereo_dataset import StereoDataset
+
+    class MemoryPNG(StereoDataset):
+        def __init__(self):
+            self.imgs = [f"{i + 1:06d}l.png" for i in range(len(ls))]
+
+        def __getitem__(self, item):
+            return (ls[item, 0].transpose(2, 0, 1).astype(np.float32),
+                    rs[item, 0].transpose(2, 0, 1).astype(np.float32),
+                    np.ones((1, H, W), bool), self.imgs[item][:6])
+
+    return MemoryPNG()
+
+
+def scenario_rows(dev):
+    """The scenario CLI's row loop (benchmark_scenarios.run_rows) over
+    CLI_ROWS on the card, each row ``infer_trajectory.run`` on
+    infer_f2f.yaml with ``--window 8`` over make_sequence frames served
+    from memory; then each row's range again through a direct ``run``: the
+    trajectory files equal byte for byte, every window 12 K1, 15 K2 and 1
+    LM solve."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from robust_pose_tpu_torch.scripts import benchmark_scenarios as bs
+    from robust_pose_tpu_torch.scripts import infer_trajectory as cli
+    from robust_pose_tpu_torch.utils.checkpoints import save_checkpoint
+    from robust_pose_tpu_torch.utils.config import read_yaml
+
+    config = read_yaml("configuration/infer_f2f.yaml")
+    ls, rs = make_sequence(CLI_ROW_FRAMES, seed=51)
+    calib = {"intrinsics": {"left": PRODUCTION_K}, "bf": PRODUCTION_BF}
+    infer = lambda a, c: cli.run(a, c, memory_pngs(ls, rs), calib)
+    with tempfile.TemporaryDirectory() as root:
+        model_cfg = production_model_cfg()
+        ckpt = os.path.join(root, "ckpt")
+        save_checkpoint(ckpt, production_weights(dev, model_cfg), {"model": model_cfg})
+        write_groundtruth(root, CLI_ROW_FRAMES)
+        flags = ["--checkpoint", ckpt, "--window", str(T_WINDOW), "--device", "cuda"]
+        args = bs.build_parser("scenarios").parse_args(
+            [root, "--outpath", os.path.join(root, "rows"), *flags])
+        windows, printed = [], io.StringIO()
+        undo = count_windows(windows)
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(printed):
+                bs.run_rows(args, config, CLI_ROWS, infer)
+        finally:
+            undo()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        one_solve_a_call(launches, "cli rows")
+        same = []
+        for i, row in enumerate(CLI_ROWS):
+            direct = cli.build_parser().parse_args(
+                [root, "--outpath", os.path.join(root, f"direct{i}"), "--start",
+                 row["start"], "--stop", row["end"], *flags])
+            with contextlib.redirect_stdout(io.StringIO()):
+                infer(direct, dict(config))
+            files = [open(os.path.join(d, "trajectory.freiburg"), "rb").read()
+                     for d in (os.path.join(root, "rows", str(i)), direct.outpath)]
+            n_lines = files[0].count(b"\n")
+            want = 1 + int(row["end"]) - int(row["start"])
+            require(files[0] == files[1] and n_lines == want,
+                    f"cli rows: row {i} ({n_lines} lines, {want} wanted) differs "
+                    "from a direct run")
+            same.append(n_lines)
+    heads = [ln for ln in printed.getvalue().splitlines() if " -> " in ln]
+    require(heads == [f"{r['start']} -> {r['end']} : {r['scenario']}" for r in CLI_ROWS]
+            and printed.getvalue().count("finished") == len(CLI_ROWS),
+            f"cli rows: printed {heads}")
+    for w in windows:
+        require(w["corr_window_lookup"] == 12 and w["instance_norm_stats"] == 15
+                and w["lm_solve"] == 1 and w["normal_eq"] == 0,
+                f"cli rows: window launches {w}")
+    return {"rows": len(CLI_ROWS), "trajectory_lines": same,
+            "windows": len(windows), "seconds": seconds,
+            "fps": sum(int(r["end"]) - int(r["start"]) for r in CLI_ROWS) / seconds,
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+class RecordingViewer:
+    """Stands in for ``Viewer2D`` (no matplotlib on the card's machine):
+    keeps each frame's index and whether its image, depth, confidences
+    and flow have the documented shapes and finite values."""
+    calls = []
+
+    def __init__(self, outpath=None, blocking=False):
+        pass
+
+    def __call__(self, frame, weights, flow, idx=0):
+        from robust_pose_tpu_torch.viewer.viewer2d import to_host
+
+        arrays = {"img": (frame.img, 3), "depth": (frame.depth, 1),
+                  "conf1": (weights[0], 1), "conf2": (weights[1], 1),
+                  "flow": (flow, 2)}
+        ok = {}
+        for k, (x, c) in arrays.items():
+            x = to_host(x)
+            ok[k] = x.shape == (1, H, W, c) and bool(np.isfinite(x).all())
+        RecordingViewer.calls.append({"idx": idx, **ok})
+
+
+def viewer_runs(dev):
+    """The CLI with ``--viewer 2d`` (RecordingViewer in Viewer2D's place)
+    on infer_f2f.yaml as phase cli's f2f run: diagnostics mode, the maps
+    read back once a window. Every frame but the first reaches the viewer
+    with finite maps of the documented shapes; then the device time of one
+    window's read-back of the maps. (``--log`` takes the same diagnostics
+    path but logs to wandb, which needs `wandb.init` and the network.)"""
+    import torch
+
+    from robust_pose_tpu_torch.viewer import viewer2d
+
+    inner = viewer2d.Viewer2D
+    viewer2d.Viewer2D = RecordingViewer
+    RecordingViewer.calls = []
+    last = []
+    try:
+        shown = cli_run(dev, "configuration/infer_f2f.yaml", CLI_F2F_FRAMES,
+                        SmoothMaps(), seed=31, extra=["--viewer", "2d"], last=last)
+    finally:
+        viewer2d.Viewer2D = inner
+    calls = RecordingViewer.calls
+    frames = list(range(1, CLI_F2F_FRAMES))
+    require([c["idx"] for c in calls] == frames * 2
+            and all(all(v for k, v in c.items() if k != "idx") for c in calls),
+            f"cli viewer: {len(calls)} frames shown, "
+            f"{[c for c in calls if not all(c.values())][:3]}")
+    diag = last[0][2]
+    require(sorted(diag) == ["conf1", "conf2", "depth", "flow"]
+            and all(v.dtype == torch.float16 for v in diag.values()),
+            "cli viewer: the window's maps")
+    readback = lambda: {k: v.cpu().float() for k, v in diag.items()}
+    dev_ms, n_ops = device_time_ms(readback)
+    for w in shown["windows"]:
+        require(w["corr_window_lookup"] == 12 and w["instance_norm_stats"] == 15
+                and w["lm_solve"] == 1 and w["normal_eq"] == 0,
+                f"cli viewer: window launches {w}")
+    keep = ("fps", "loop_s", "stage_ms", "launches", "ate_rmse_mm")
+    return {"viewer_2d": {**{k: shown[k] for k in keep}, "frames_shown": len(calls) // 2},
+            "diag_readback": {"bytes": sum(v.numel() * 2 for v in diag.values()),
+                              "device_ms": dev_ms, "device_ops": n_ops,
+                              "ms": cuda_time_ms(readback, reps=10)}}
+
+
 def phase_cli(dev, smi):
     """The port's trajectory-inference CLI at full width: DevicePreproc
     card against CPU; ``run`` on infer_f2f.yaml (CLI_F2F_FRAMES frames:
     K1, K2 and the LM solve counted a window) and on infer_scared.yaml
     (CLI_F2M_FRAMES frames, its own pool size), each beside phase main's
-    FPS of this run."""
+    FPS of this run; then the scenario CLI's row loop (scenario_rows) and
+    the CLI with a viewer (viewer_runs)."""
     import torch
 
     t0 = time.perf_counter()
@@ -3083,6 +3357,16 @@ def phase_cli(dev, smi):
           "window_loop_reruns": reruns, "main_fps": MAIN_FPS.get("main"),
           "seconds": time.perf_counter() - t0,
           **{k: v for k, v in f2m.items() if k != "windows"}})
+    torch.cuda.empty_cache()
+
+    emit({"phase": "cli", "part": "scenario_rows", "card": smi, "shape": [H, W],
+          "config": "configuration/infer_f2f.yaml", "window": T_WINDOW,
+          "row_list": CLI_ROWS, **scenario_rows(dev)})
+    torch.cuda.empty_cache()
+    emit({"phase": "cli", "part": "viewer", "card": smi, "shape": [H, W],
+          "config": "configuration/infer_f2f.yaml", "window": T_WINDOW,
+          "frames": CLI_F2F_FRAMES, "cli_f2f_fps": f2f["fps"],
+          "main_fps": MAIN_FPS.get("main"), **viewer_runs(dev)})
     torch.cuda.empty_cache()
     return per_window
 
@@ -3142,6 +3426,11 @@ def phase_ops_tail(dev):
         "median_filter_2d": (lambda a: interpolation.median_filter_2d(a, 5), (x,), "bits"),
         "sparse_median_interpolate": (interpolation.sparse_median_interpolate,
                                       (holes,), "bits"),
+        # an even window: the midpoint of the middle two taps
+        "median_filter_2d_k4": (lambda a: interpolation.median_filter_2d(a, 4),
+                                (x,), "bits"),
+        "sparse_median_interpolate_k4": (
+            lambda a: interpolation.sparse_median_interpolate(a, 4), (holes,), "bits"),
         "lookup_corr_gather": (lambda a, b, c: raft.lookup_corr_gather(
             raft.build_corr_pyramid(a, b), c), (*fm, coords8), "tol"),
     }
@@ -3513,6 +3802,13 @@ def main():
         phase_main(dev, smi)
         phase_cli(dev, smi)
         return 0
+    if sys.argv[1:] == ["bench"]:
+        # phases main and f2m (for their FPS) and the port's bench; no
+        # result line
+        phase_main(dev, smi)
+        phase_f2m(dev, smi)
+        phase_bench(dev, smi)
+        return 0
     if sys.argv[1:] == ["train_cli"]:
         # phase train (the bare step) and the training CLI; no result line
         phase_train(dev, smi)
@@ -3532,6 +3828,7 @@ def main():
     phase_cli(dev, smi)
     phase_ops_tail(dev)
     phase_train_cli(dev, smi)
+    phase_bench(dev, smi)
     # each kernel's launches on its own path: K1-K3 in the f2f main path
     # (K3: the LM solve kernel, one launch a window, every build inside),
     # K4-K5 in the training step with live RAFT, K7 in the f2m window with

@@ -35,10 +35,9 @@ def sparse_img_interpolate(x: Tensor, kernel_size: int = 5, sigma: float = 2.0,
 
 def median_filter_2d(x: Tensor, kernel_size: int = 3) -> Tensor:
     """Same-size 2D median filter of ``x (B, H, W, C)`` over the
-    edge-replicated image. ``kernel_size`` is odd, so ``torch.median``'s
-    lower median is the middle element, as ``jnp.median``'s is."""
-    if kernel_size % 2 == 0:
-        raise ValueError(f"median_filter_2d: kernel_size {kernel_size} is even")
+    edge-replicated image, as ``jnp.median``: the middle of the sorted k²
+    taps, and for an even count the midpoint of the middle two (where
+    ``torch.median`` would take the lower one)."""
     pad = kernel_size // 2
     b, h, w, c = x.shape
     padded = F.pad(x.permute(0, 3, 1, 2), (pad, pad, pad, pad),
@@ -46,7 +45,11 @@ def median_filter_2d(x: Tensor, kernel_size: int = 3) -> Tensor:
     patches = torch.stack([padded[:, i:i + h, j:j + w, :]
                            for i in range(kernel_size)
                            for j in range(kernel_size)], dim=-1)
-    return torch.median(patches, dim=-1).values
+    taps = torch.sort(patches, dim=-1).values
+    m = kernel_size * kernel_size // 2
+    if kernel_size % 2:
+        return taps[..., m]
+    return (taps[..., m - 1] + taps[..., m]) * 0.5
 
 
 def sparse_median_interpolate(x: Tensor, kernel_size: int = 3,

@@ -3,7 +3,9 @@
 Runs the stereo SLAM loop over a sequence folder (preprocessed PNGs or a
 raw mp4 with ``--device-preproc``), writes the TUM/freiburg trajectory and
 the surfel-map PLYs, and evaluates ATE/RPE when the folder holds a
-``groundtruth.txt``::
+``groundtruth.txt``; ``--viewer`` shows each frame (``2d``: matplotlib
+panels written to ``<outpath>/imgs``; ``3d`` and ``video``: open3d, which
+warn and switch off where open3d is missing)::
 
     python -m robust_pose_tpu_torch.scripts.infer_trajectory <sequence> \\
         --checkpoint <dir or .pth> --config configuration/infer_f2f.yaml \\
@@ -11,15 +13,23 @@ the surfel-map PLYs, and evaluates ATE/RPE when the folder holds a
 
 It runs on the CUDA card unless ``--device cpu`` is given. ``main`` reads
 the dataset and calibration from disk (``get_data``); ``run`` is the loop
-and the outputs, for a dataset and calibration from anywhere. The viewers
-are not ported yet (``--viewer`` other than ``none`` raises).
+and the outputs, for a dataset and calibration from anywhere.
 """
 import argparse
 import os
 import warnings
+from types import SimpleNamespace
 
 import numpy as np
 import torch
+
+
+def _nhwc(img):
+    """(1, 3, H, W) or (1, H, W, 3) image, array or tensor, as NHWC."""
+    if img.shape[-1] in (1, 3):
+        return img
+    return img.permute(0, 2, 3, 1) if torch.is_tensor(img) else np.transpose(
+        np.asarray(img), (0, 2, 3, 1))
 
 
 def main(args, config):
@@ -50,10 +60,6 @@ def run(args, config, dataset, calib, timer=None):
     from robust_pose_tpu_torch.utils.profiling import StageTimer
     from robust_pose_tpu_torch.utils.trajectory import read_freiburg, save_trajectory
 
-    if args.viewer != "none":
-        raise NotImplementedError(
-            f"--viewer {args.viewer}: the viewers are not ported yet "
-            "(ROADMAP.md, queue A, item 3: viewer/*)")
     device = resolve_device(getattr(args, "device", None))
     if args.outpath is None:
         args.outpath = os.path.join(args.input, "data", "infer_trajectory")
@@ -91,19 +97,53 @@ def run(args, config, dataset, calib, timer=None):
                       UserWarning)
         sampler = None
 
+    viewer = None
+    if args.viewer == "2d":
+        from robust_pose_tpu_torch.viewer.viewer2d import Viewer2D
+        viewer = Viewer2D(outpath=args.outpath, blocking=args.block_viewer)
+    elif args.viewer == "3d":
+        try:
+            from robust_pose_tpu_torch.viewer.viewer3d import Viewer3D
+            viewer = Viewer3D(config["img_size"][::-1],
+                              blocking=args.block_viewer)
+        except ImportError as e:
+            warnings.warn(f"--viewer 3d needs open3d ({e}); disabled.")
+    elif args.viewer == "video":
+        try:
+            from robust_pose_tpu_torch.viewer.view_renderer import ViewRenderer
+            viewer = ViewRenderer(config["img_size"][::-1], args.outpath)
+        except ImportError as e:
+            warnings.warn(f"--viewer video needs open3d ({e}); disabled.")
+
     recorder = InferenceLogger(log=args.log)
     recorder.set_gt(gt_trajectory)
     timer = StageTimer() if timer is None else timer
 
     window = max(1, getattr(args, "window", 1))
-    # with --log, a window's pass also returns its per-frame flow,
-    # confidence and depth maps, read back in one bulk transfer
-    diag_mode = window > 1 and args.log is not None
+    # with a viewer or --log, a window's pass also returns its per-frame
+    # flow, confidence and depth maps, read back in one bulk transfer
+    diag_mode = window > 1 and (viewer is not None or args.log is not None)
 
     trajectory = [{"camera-pose": pose_estimator.last_pose[0],
                    "timestamp": args.start}]
     scene = None
-    buf = []  # (limg, rimg, mask, img_number) awaiting a window dispatch
+    buf = []  # (limg, rimg, mask, img_number, i) awaiting a window dispatch
+
+    def show(pose, scene_v, frame=None, weights=None, flow=None, idx=0,
+             pcd=None):
+        """Feed one frame to the viewer; returns the 3d/video viewers'
+        point cloud (made here where ``pcd`` is None)."""
+        if args.viewer == "2d":
+            viewer(frame, weights, flow, idx)
+        elif scene_v is not None:
+            # 3d / video: the camera follows the pose through the surfel map
+            from robust_pose_tpu_torch.viewer.viewer3d import surfels_to_open3d
+            if pcd is None:
+                pcd = surfels_to_open3d(scene_v.state,
+                                        depth_scale=scene_v.depth_scale,
+                                        stable=True)
+            viewer(pose, pcd)
+        return pcd
 
     def flush_window():
         # device-preproc outputs are on the device already: stack there
@@ -120,17 +160,26 @@ def run(args, config, dataset, calib, timer=None):
         with timer.stage("readback"):
             poses_np = poses.cpu().numpy()
             if diag_mode:
-                # one bulk transfer a window; the maps ride as f16
-                diag = {k: v.float().cpu().numpy() for k, v in diag.items()}
-        for b, p in zip(buf, poses_np):
+                # one bulk transfer a window; the maps ride as f16 and
+                # widen on the host
+                diag = {k: v.cpu().float().numpy() for k, v in diag.items()}
+        pcd = None       # a window's surfel cloud: the map after the window
+        for t, (b, p) in enumerate(zip(buf, poses_np)):
             trajectory.append({"camera-pose": p[0], "timestamp": b[3]})
+            if viewer is not None:
+                frame_t = SimpleNamespace(img=_nhwc(b[0]),
+                                          depth=diag["depth"][t:t + 1])
+                pcd = show(p[0], pose_estimator.scene, frame_t,
+                           (diag["conf1"][t:t + 1], diag["conf2"][t:t + 1]),
+                           diag["flow"][t:t + 1], b[4] * args.step, pcd)
             if args.log is not None:
                 recorder(pose_estimator.scene, p[0], step=int(b[3]))
         buf.clear()
 
     # decode the next frames on a background thread while the device runs
     # the current step
-    defer = args.log is None and not getattr(args, "profile", False)
+    defer = (viewer is None and args.log is None
+             and not getattr(args, "profile", False))
     with timer.stage("loop", sync=trajectory):
         for i, data in enumerate(prefetch_iterator(
                 iterate_dataset(dataset, sampler), depth=2 * window)):
@@ -146,7 +195,7 @@ def run(args, config, dataset, calib, timer=None):
             rimg = rimg[None] if rimg.ndim == 3 else rimg
             mask = mask[None] if mask.ndim == 3 else mask
             if window > 1 and i > 0:
-                buf.append((limg, rimg, mask, img_number))
+                buf.append((limg, rimg, mask, img_number, i))
                 if len(buf) == window:
                     flush_window()
                 continue
@@ -158,6 +207,9 @@ def run(args, config, dataset, calib, timer=None):
             with timer.stage("readback"):
                 pose_np = pose[0] if defer else pose[0].cpu().numpy()
             trajectory.append({"camera-pose": pose_np, "timestamp": img_number})
+            if viewer is not None and i > 0:
+                show(pose_np, scene, pose_estimator.get_frame(), weights, flow,
+                     i * args.step)
             if args.log is not None and i > 0:
                 recorder(scene, pose_np, step=int(img_number))
         if buf:
@@ -218,8 +270,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="wandb group logging name. No logging if unset")
     parser.add_argument("--viewer", default="none",
                         choices=["none", "2d", "3d", "video"],
-                        help="viewers are not ported yet: anything but "
-                        "none raises")
+                        help="2d: matplotlib panels (to <outpath>/imgs); "
+                        "3d, video: open3d (off where it is missing)")
     parser.add_argument("--block_viewer", action="store_true")
     parser.add_argument("--profile", action="store_true",
                         help="print per-frame stage timing")

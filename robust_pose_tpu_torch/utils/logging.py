@@ -1,7 +1,8 @@
 """Metric logging (port of ``robust_pose_tpu/utils/logging.py``): the same
 metric names and semantics (per-frame surfel counts and pose-error
 decomposition, a running-mean training accumulator with a console table),
-with wandb optional: console only when it is missing or disabled.
+with wandb optional: console only when it is missing or disabled. wandb
+is imported when a logger that logs is made.
 """
 from __future__ import annotations
 
@@ -10,14 +11,19 @@ from typing import Dict, Optional
 import numpy as np
 from scipy.spatial.transform import Rotation as R
 
-try:
-    import wandb
-
-    _HAS_WANDB = True
-except ImportError:  # wandb optional
-    _HAS_WANDB = False
-
 from robust_pose_tpu_torch.utils.trajectory import vec2mat
+
+
+def _wandb(enabled: bool):
+    """The wandb module where logging is asked for and wandb is installed,
+    else None."""
+    if not enabled:
+        return None
+    try:
+        import wandb
+    except ImportError:  # wandb optional
+        return None
+    return wandb
 
 
 def _host(x) -> np.ndarray:
@@ -30,7 +36,8 @@ class InferenceLogger:
 
     def __init__(self, log: Optional[str] = None):
         self.gt_trajectory = None
-        self.enabled = log is not None and _HAS_WANDB
+        self.wandb = _wandb(log is not None)
+        self.enabled = self.wandb is not None
         self.history = []
 
     def set_gt(self, gt_trajectory):
@@ -73,12 +80,12 @@ class InferenceLogger:
             })
         self.history.append(log_dict)
         if self.enabled:
-            wandb.log(log_dict, step=step)
+            self.wandb.log(log_dict, step=step)
 
     def summary(self, metrics: Dict):
         if self.enabled:
             for k, v in metrics.items():
-                wandb.summary[k] = v
+                self.wandb.summary[k] = v
 
 
 class TrainLogger:
@@ -89,9 +96,10 @@ class TrainLogger:
                  log: bool = False):
         self.total_steps = 0
         self.running_loss = {"train": {}, "val": {}}
-        self.log = log and _HAS_WANDB
+        self.wandb = _wandb(log)
+        self.log = self.wandb is not None
         if self.log:
-            wandb.init(project=project_name, config=config)
+            self.wandb.init(project=project_name, config=config)
         self.header = False
 
     def _print_header(self):
@@ -116,14 +124,14 @@ class TrainLogger:
 
     def flush(self, mode: str = "train"):
         if self.log:
-            wandb.log(self.running_loss[mode])
+            self.wandb.log(self.running_loss[mode])
         self._print_training_status(mode)
         self.running_loss[mode] = {}
 
     def save_model(self, path: str):
         if self.log:
-            wandb.save(path)
+            self.wandb.save(path)
 
     def close(self):
         if self.log:
-            wandb.finish()
+            self.wandb.finish()

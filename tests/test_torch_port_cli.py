@@ -166,15 +166,6 @@ def test_f2m_surfel_summary_and_plys_match_jax_cli(runs):
                 == os.path.isfile(os.path.join(runs["f2m_window4", "jax"][0], name)))
 
 
-def test_viewer_is_refused(data_dirs, checkpoint_dir, tmp_path):
-    from robust_pose_tpu_torch.scripts.infer_trajectory import main
-
-    args = _args(data_dirs["png"], checkpoint_dir, str(tmp_path), 1, False,
-                 viewer="2d", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A"):
-        main(args, _config(F2F))
-
-
 def test_no_device_on_a_cpu_only_host_raises(data_dirs, checkpoint_dir, tmp_path):
     from robust_pose_tpu_torch.scripts.infer_trajectory import build_parser, main
 

@@ -23,17 +23,19 @@ def _modules():
 def test_importing_every_module_loads_no_jax():
     """A fresh interpreter imports every module of the port (and runs
     nothing else); afterwards neither jax, flax, msgpack nor robust_pose_tpu
-    is in sys.modules, and no cv2, PyYAML or matplotlib either: the card's
-    machine has none of them, so the host data modules import cv2 inside
-    the functions that decode, remap or write images, and configurations
-    are read by ``utils.config.read_yaml``."""
+    is in sys.modules, and no cv2, PyYAML, matplotlib, pandas, seaborn,
+    open3d or wandb either: the card's machine has none of them, so the
+    host data modules import cv2 inside the functions that decode, remap
+    or write images, configurations are read by ``utils.config.read_yaml``,
+    and the viewers and evaluation CLIs import their plotting, table and
+    3D libraries where they use them."""
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'msgpack', 'robust_pose_tpu', 'cv2', "
-        "'yaml', 'matplotlib'))\n"
+        "'yaml', 'matplotlib', 'pandas', 'seaborn', 'open3d', 'wandb'))\n"
         "print('LOADED', bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -151,10 +153,11 @@ def test_trainer_needs_a_device_choice_without_cuda():
 
 
 def test_training_clis_need_a_device_choice_without_cuda(tmp_path):
-    """The training CLI (``main`` and ``run``) and ``bench_train_step`` raise
-    without a card unless the CPU is asked for (``--force_cpu``), before
-    they read a dataset."""
-    from robust_pose_tpu_torch.scripts import bench_train_step, train_posenet
+    """The training CLI (``main`` and ``run``), ``bench_train_step`` and the
+    streaming ``bench`` raise without a card unless the CPU is asked for
+    (``--force_cpu``, ``--device cpu``), before they read a dataset or
+    build a model."""
+    from robust_pose_tpu_torch.scripts import bench, bench_train_step, train_posenet
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: cuda is the default here")
@@ -166,5 +169,7 @@ def test_training_clis_need_a_device_choice_without_cuda(tmp_path):
         train_posenet.run(args, {}, [], [])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bench_train_step.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench.main([])
     assert train_posenet._device(train_posenet.build_parser().parse_args(
         ["--force_cpu"])) == torch.device("cpu")
