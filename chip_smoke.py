@@ -9,7 +9,8 @@
                                     # 48 fresh trainers; no result line
     python3 chip_smoke.py cli       # phases 1, 4 and 14; no result line
     python3 chip_smoke.py train_cli # phases 1, 7 and 16; no result line
-    python3 chip_smoke.py bench     # phases 1, 4, 9 and 17; no result line
+    python3 chip_smoke.py bench     # phases 1, 4, 9 and 18; no result line
+    python3 chip_smoke.py ddp       # phases 1, 7 and 17; no result line
 
 Phases, each printing one JSON line:
 
@@ -151,7 +152,37 @@ Phases, each printing one JSON line:
                   phase train's (a) and (b), peak memory; then
                   bench_train_step at batch 8 (remat and no-remat peaks,
                   as is and with --live-flow-grads).
-17. bench      -- the port's streaming bench (robust_pose_tpu_torch.
+17. ddp        -- data parallelism (robust_pose_tpu_torch.parallel.mesh)
+                  at full width on configuration/train.yaml, global batch
+                  8, phase train's weights and batch: (i) a world of 1
+                  under NCCL through the mesh path, configurations (a) and
+                  (b), a warm-up and 2 timed steps each, every step held
+                  to the bare trainer's step from the same state
+                  (gradients, Adam's moments and metrics rtol 2e-3, the
+                  heads' BatchNorm statistics 1e-4, weights within Adam's
+                  2 lr: the CPU test's bounds, widened by 3 times the bare
+                  trainer's own run-to-run spread), seconds a step beside
+                  phase train's, busy ms, idle share, the
+                  train_step.allreduce span's host and device ms, peak
+                  GiB, K1-K5 launches and collectives a step; (ii) a
+                  world of 2 under gloo, both ranks on cuda:0 (spawned
+                  with torch.multiprocessing, tcp://127.0.0.1), 4 rows a
+                  rank: per rank the same figures (bf16), the ranks'
+                  states bit for bit, and in f32 each step against the
+                  bare trainer's on the global batch from the same state,
+                  the spread widened by a replay on inputs perturbed by
+                  1e-7 (in bf16 halving the batch moves the outputs by
+                  2e-3 to 5e-2: printed); the same check must fail on (a)
+                  with the heads' BatchNorm on each rank's own statistics;
+                  (iii) the training CLI at world 2 (stop_flow_grad, f32,
+                  grad_accum 1 and 2, 2 steps, one validation): rank 0
+                  alone writes checkpoints, they load into a world-1
+                  trainer; of each step the ranks' rows put together are
+                  a world-1 CLI run's global batch, and metrics, weights
+                  and validation loss are held to that run's; (iv)
+                  bench_train_step at world 1 under NCCL beside phase
+                  train_cli's.
+18. bench      -- the port's streaming bench (robust_pose_tpu_torch.
                   scripts.bench.main, bench.py's defaults) in this process:
                   its one JSON line with bench.py's keys, FPS finite and
                   positive, success rates in [0, 1], LM iterations within
@@ -1657,9 +1688,10 @@ def profile_run(run, span_prefix):
     work runs on one stream in order, so a stage's device window reaches
     from the start of its span on the device timeline to the start of the
     next span, and every kernel that starts in it (hand-written ones and
-    those of the autograd thread included) counts for the stage. If the
-    profiler saw no kernel, only the wall time, with the device time
-    marked "not measured"."""
+    those of the autograd thread included) counts for the stage; a stage's
+    host ms are its spans' own on the host clock. If the profiler saw no
+    kernel, only the wall time, with the device time marked "not
+    measured"."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1696,8 +1728,8 @@ def profile_run(run, span_prefix):
     for i, (s0, e0, name) in enumerate(spans):
         s1 = spans[i + 1][0] if i + 1 < len(spans) else e0
         st = stages.setdefault(name, {"device_ms": 0.0, "kernel_ms": 0.0,
-                                      "launches": 0, "in_span_launches": 0,
-                                      "names": {}})
+                                      "host_ms": 0.0, "launches": 0,
+                                      "in_span_launches": 0, "names": {}})
         st["device_ms"] += (s1 - s0) / 1e3
         for k in kernels:
             if s0 <= k.time_range.start < s1:
@@ -1706,6 +1738,9 @@ def profile_run(run, span_prefix):
                 st["launches"] += 1
                 st["in_span_launches"] += k.time_range.start <= e0
                 st["names"][k.name] = st["names"].get(k.name, 0.0) + ms
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in stages:
+            stages[e.name]["host_ms"] += e.time_range.elapsed_us() / 1e3
     for st in stages.values():
         st["top"] = _top(st.pop("names"), 4)
     return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
@@ -3490,6 +3525,51 @@ TRAIN_CLI_BF = 800.0          # baseline x focal: depth 100 mm at 8 px disparity
 TRAIN_CLI_FRAMES = (48, 48, 24)
 
 
+TRAIN_CLI_BENCH = {}          # phase train_cli's bench_train_step (as is) of this run
+
+
+def train_cli_config(steps):
+    """configuration/train.yaml as phase train_cli runs it: ``steps``
+    steps, TRAIN_CLI_SAMPLES training samples a sequence, TRAIN_CLI_VAL
+    validation samples."""
+    import copy
+
+    from robust_pose_tpu_torch.utils.config import read_yaml
+
+    y = read_yaml("configuration/train.yaml")
+    require(y["train"]["batch_size"] == TRAIN_BATCH and y["val"]["batch_size"] == 10
+            and tuple(y["image_shape"]) == (H, W)
+            and y["train"]["freeze_flow_steps"] == 10 ** 18, "train.yaml changed")
+    cfg = copy.deepcopy(y)
+    cfg["train"]["epochs"] = steps - 1
+    cfg["data"]["train"]["samples"] = TRAIN_CLI_SAMPLES
+    cfg["data"]["val"]["samples"] = TRAIN_CLI_VAL
+    return cfg
+
+
+def write_train_cli_sequences(root):
+    for i, n in enumerate(TRAIN_CLI_FRAMES):
+        write_pose_sequence(f"{root}/seq{i}", n)
+
+
+def train_cli_data(root, cfg):
+    """Phase train_cli's (training, validation) datasets over the
+    sequence folders under ``root`` (write_train_cli_sequences), the
+    frames made from their seeds."""
+    from robust_pose_tpu_torch.data.train_datasets import ConcatDataset
+
+    data = []
+    for i, n in enumerate(TRAIN_CLI_FRAMES):
+        split = cfg["data"]["train" if i < 2 else "val"]
+        frames = make_sequence(n, disparity=8, step=3, seed=50 + i)
+        data.append(memory_pose_dataset(f"{root}/seq{i}", frames, split,
+                                        np.random.default_rng(1234 + i)))
+    data = (ConcatDataset(data[:2]), ConcatDataset(data[2:]))
+    require(len(data[0]) == 2 * TRAIN_CLI_SAMPLES and len(data[1]) == TRAIN_CLI_VAL,
+            f"train_cli: {len(data[0])} / {len(data[1])} samples")
+    return data
+
+
 def memory_pose_dataset(root, frames, cfg, rng):
     """The port's PoseDataset over a folder of placeholder PNG names and a
     real groundtruth.txt, its images served from ``frames`` ((left, right)
@@ -3737,32 +3817,13 @@ def phase_train_cli(dev, smi):
 
     import tempfile
 
-    from robust_pose_tpu_torch.data.train_datasets import ConcatDataset
-    from robust_pose_tpu_torch.utils.config import read_yaml
-
-    y = read_yaml("configuration/train.yaml")
-    require(y["train"]["batch_size"] == TRAIN_BATCH and y["val"]["batch_size"] == 10
-            and tuple(y["image_shape"]) == (H, W)
-            and y["train"]["freeze_flow_steps"] == 10 ** 18, "train.yaml changed")
-    cfg = copy.deepcopy(y)
-    cfg["train"]["epochs"] = TRAIN_CLI_STEPS - 1
-    cfg["data"]["train"]["samples"] = TRAIN_CLI_SAMPLES
-    cfg["data"]["val"]["samples"] = TRAIN_CLI_VAL
+    cfg = train_cli_config(TRAIN_CLI_STEPS)
     sd = train_weights_full(cfg["model"])
     t0 = time.perf_counter()
     runs = {}
     with tempfile.TemporaryDirectory() as root:
-        data = []
-        for i, n in enumerate(TRAIN_CLI_FRAMES):
-            split = cfg["data"]["train" if i < 2 else "val"]
-            seq = f"{root}/seq{i}"
-            write_pose_sequence(seq, n)
-            frames = make_sequence(n, disparity=8, step=3, seed=50 + i)
-            data.append(memory_pose_dataset(seq, frames, split,
-                                            np.random.default_rng(1234 + i)))
-        data = (ConcatDataset(data[:2]), ConcatDataset(data[2:]))
-        require(len(data[0]) == 2 * TRAIN_CLI_SAMPLES and len(data[1]) == TRAIN_CLI_VAL,
-                f"train_cli: {len(data[0])} / {len(data[1])} samples")
+        write_train_cli_sequences(root)
+        data = train_cli_data(root, cfg)
         for name, live in (("as_read", True), ("stop_flow_grad", False)):
             c = copy.deepcopy(cfg)
             if not live:
@@ -3770,9 +3831,631 @@ def phase_train_cli(dev, smi):
             runs[name] = train_cli_run(dev, smi, name, c, sd, data, live)
             torch.cuda.empty_cache()
     bench = [bench_train_step_run([]), bench_train_step_run(["--live-flow-grads"])]
+    TRAIN_CLI_BENCH.update(bench[0])
     emit({"phase": "train_cli", "part": "bench_train_step", "card": smi,
           "runs": bench, "seconds": time.perf_counter() - t0})
     return runs, bench
+
+
+# ---------------------------------------------------------------------------
+# phase ddp
+# ---------------------------------------------------------------------------
+
+DDP_WORLD = 2                 # case (ii), (iii): two gloo ranks on cuda:0
+DDP_TIMEOUT_S = 120           # a collective that waits longer raises
+DDP_JOIN_S = 600              # the spawned ranks' deadline
+DDP_CLI_STEPS = 2             # case (iii): 2 steps, one validation (VAL_FREQ 2)
+DDP_CLI_CASES = {"plain": 1, "accum": 2}   # case (iii): train.grad_accum
+DDP_RTOL = 2e-3               # tests/test_torch_port_ddp.py's bounds
+DDP_STATS_RTOL = 1e-4
+
+
+def ddp_snapshot(st):
+    """The train state's tensors cloned (on their device), as
+    ``PoseNetTrainer.init_state(variables=...)`` takes them."""
+    return {"state_dict": {**{k: v.detach().clone() for k, v in st.params.items()},
+                           **{k: v.clone() for k, v in st.batch_stats.items()}},
+            "mu": {k: v.clone() for k, v in st.opt_state.mu.items()},
+            "nu": {k: v.clone() for k, v in st.opt_state.nu.items()},
+            "count": st.opt_state.count, "step": st.step}
+
+
+def ddp_cpu(snap):
+    return {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v)
+            for k, v in snap.items()}
+
+
+def ddp_errors(ref_m, ref, got_m, got):
+    """Per item, the largest absolute difference of a step (metrics, the
+    gradients its optimizer took, and the state after it: weights and
+    statistics, Adam's moments) from another; and each item's scale (the
+    reference's largest magnitude)."""
+    err, scale = {}, {}
+    for k, v in ref_m.items():
+        err["metrics", k], scale["metrics", k] = abs(got_m[k] - v), abs(v)
+    for g in DDP_GROUPS:
+        for k, a in ref[g].items():
+            err[g, k] = float((got[g][k].to(a.device) - a).abs().max())
+            scale[g, k] = float(a.abs().max())
+    return err, scale
+
+
+DDP_GROUPS = ("state_dict", "grads", "mu", "nu")
+DDP_PERTURB = 1e-7            # relative input perturbation of the sensitivity replay
+
+
+def ddp_compare(err, scale, spread, lr):
+    """A step against the bare trainer's step from the same state, by the
+    CPU test's bounds (tests/test_torch_port_ddp.py) widened by the bare
+    trainer's own spread on the card (``spread``: the errors of the other
+    bare replays of the step, ddp_replay; bf16 gradients through the
+    heads' bilinear resize, whose backward adds with atomics, differ from
+    run to run, and a leaf whose gradient is rounding noise differs by its
+    whole size).
+    The CPU bounds: metrics rtol DDP_RTOL; gradients DDP_RTOL of the leaf's
+    largest plus 2e-5 of the largest of all; Adam's moments DDP_RTOL of the
+    leaf's largest plus 1e-6 of the largest of all; the heads' BatchNorm
+    statistics rtol DDP_STATS_RTOL; weights within 2 lr x 1.02 plus 4 f32
+    ulps of the leaf's largest, Adam's bound on two steps from one state
+    (a step moves a weight by lr |m/sqrt(v)| <= 1.011 lr up to step 5, by
+    Cauchy-Schwarz on the bias-corrected averages, then rounds; a weight
+    whose gradient is rounding noise moves by ~lr either way, so at
+    train.yaml's lr 1e-5 this is a sanity bound, and what the step computed
+    is held by its gradients and moments). Widened: a
+    metric or a statistic by 3 times its own spread; a gradient or a moment
+    by 3 times the largest spread of its group (one replay's spread of a
+    small leaf is too few samples to bound it). Per group: the worst error
+    over its tolerance (<= 1 passes), where, the worst relative difference
+    and the worst relative spread."""
+    group_of = {}
+    for g, k in err:
+        if g == "state_dict":
+            group_of[g, k] = ("stats" if k.endswith(("running_mean", "running_var"))
+                              else "params")
+        else:
+            group_of[g, k] = g
+    mmax, floor = {}, {}
+    for item, grp in group_of.items():
+        mmax[grp] = max(mmax.get(grp, 0.0), scale[item])
+        floor[grp] = max(floor.get(grp, 0.0), spread[item])
+    out = {}
+    for item, e in err.items():
+        grp, k = group_of[item], item[1]
+        if grp == "stats":
+            tol = DDP_STATS_RTOL * scale[item] + 3 * spread[item]
+        elif grp == "params":
+            tol = 2.04 * lr + 4 * 2.0 ** -23 * scale[item]
+        elif grp == "metrics":
+            tol = DDP_RTOL * scale[item] + 3 * spread[item]
+        else:
+            top = 2e-5 if grp == "grads" else 1e-6
+            tol = DDP_RTOL * scale[item] + top * mmax[grp] + 3 * floor[grp]
+        ratio = e / tol if tol else (0.0 if e == 0 else float("inf"))
+        o = out.setdefault(grp, {"over_tol": 0.0, "at": None, "max_rel": 0.0,
+                                 "bare_spread_max_rel": 0.0, "worst": []})
+        if ratio > o["over_tol"]:
+            o["over_tol"], o["at"] = ratio, k
+        s = max(scale[item], 1e-30)
+        o["max_rel"] = max(o["max_rel"], e / s)
+        o["bare_spread_max_rel"] = max(o["bare_spread_max_rel"], spread[item] / s)
+        # the worst items: over tolerance, error and spread over the item's
+        # scale, the item's scale over the group's largest
+        o["worst"] = sorted(o["worst"] + [(ratio, e / s, spread[item] / s,
+                                           scale[item] / max(mmax[grp], 1e-30), k)],
+                            reverse=True)[:3]
+    return out
+
+
+def ddp_check(comparisons, what):
+    worst = {g: max(c[g]["over_tol"] for c in comparisons) for g in comparisons[0]}
+    require(all(v <= 1.0 for v in worst.values()),
+            f"{what}: off the bare trainer's step: {comparisons}")
+    return {"worst_over_tol": worst, "steps": comparisons}
+
+
+def ddp_control(comparisons, what):
+    """The negative control: a step with the heads' BatchNorm on each
+    rank's own statistics must miss the bare trainer's step, in the
+    statistics and in the gradients."""
+    worst = {g: max(c[g]["over_tol"] for c in comparisons) for g in comparisons[0]}
+    require(worst["stats"] > 1.0 and worst["grads"] > 1.0,
+            f"{what}: the local-statistics control passed the check: {worst}")
+    return {"worst_over_tol": worst}
+
+
+def ddp_perturbed(batch, seed=5):
+    """``batch`` with its four images scaled by (1 + DDP_PERTURB N(0, 1))
+    elementwise (seeded, on their device): a change below what splitting
+    the batch does to the forward pass in f32 (ddp_batch_split)."""
+    import torch
+
+    g = torch.Generator(device=batch[0].device).manual_seed(seed)
+    return tuple(x * (1 + DDP_PERTURB * torch.randn(x.shape, generator=g,
+                                                     device=x.device))
+                 if i < 4 else x for i, x in enumerate(batch))
+
+
+def ddp_replay(dev, cfg, records, batch, perturb=False):
+    """Each recorded step (a state before it, metrics, gradients and state
+    after)
+    replayed twice by the bare trainer (no mesh) from the same state on
+    the whole global ``batch``, and with ``perturb`` once more on
+    ``ddp_perturbed(batch)``; the comparisons (ddp_compare) against the
+    first replay, the spread being the larger of the other replays'
+    errors. A world of 2 computes on halves of the batch, whose
+    convolutions round otherwise; the LM's iteration counts follow the
+    last bits, and its implicit-function gradient moves with them
+    (grad_norm by ~1e-3 under a 1e-7 input change on the card)."""
+    from robust_pose_tpu_torch.train.trainer import PoseNetTrainer
+
+    out = []
+    for rec in records:
+        bare = []
+        for b in (batch, batch) + ((ddp_perturbed(batch),) if perturb else ()):
+            tr = PoseNetTrainer(cfg, device=dev)
+            st = tr.init_state(rec["before"])
+            ddp_spy_grads(tr)
+            st, m = tr.train_step(st, b)
+            bare.append(({k: float(v) for k, v in m.items()},
+                         {**ddp_snapshot(st), "grads": tr.last_grads}))
+            del tr, st
+        spread = {}
+        for other in bare[1:]:
+            e, _ = ddp_errors(*bare[0], *other)
+            spread = {k: max(v, spread.get(k, 0.0)) for k, v in e.items()}
+        err, scale = ddp_errors(*bare[0], rec["metrics"], rec["after"])
+        out.append(ddp_compare(err, scale, spread, cfg["train"]["learning_rate"]))
+    return out
+
+
+def ddp_steps(tr, st, batch):
+    """A warm-up step; TRAIN_TIMED steps timed as phase train times them
+    (host clock around back-to-back steps ending in a synchronize) with the
+    launch counters and the mesh's collective counts set to 0 just before
+    and read just after; then TRAIN_TIMED more steps, each with the state
+    before and after it and its gradients snapshotted (what the checks
+    replay)."""
+    import torch
+
+    st, _ = tr.train_step(st, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    tr.mesh.calls.clear()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED):
+        st, m = tr.train_step(st, batch)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_TIMED
+    launches = launch_counts()
+    per_step = {k: launches[k] / TRAIN_TIMED for k in (
+        "corr_window_lookup", "instance_norm_stats", "lm_solve",
+        "lanewise_lookup", "lanewise_lookup_bwd")}
+    calls = {k: v / TRAIN_TIMED for k, v in tr.mesh.calls.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    st, records = ddp_records(tr, st, batch)
+    return st, records, {
+        "step_s": dt, "peak_mem_gib": peak, "launches_per_step": per_step,
+        "collectives_per_step": calls,
+        "lm_iters": [r["iters"] for r in records],
+        "loss_total": [r["metrics"]["train/loss_total"] for r in records]}
+
+
+def ddp_spy_grads(tr):
+    """Keep, as ``tr.last_grads``, a copy of the gradients each step hands
+    its optimizer (averaged over ranks and microbatches)."""
+    update = tr.optimizer.update
+
+    def spy(params, grads, opt_state):
+        tr.last_grads = {k: g.clone() for k, g in grads.items() if g is not None}
+        return update(params, grads, opt_state)
+
+    tr.optimizer.update = spy
+
+
+def ddp_records(tr, st, batch, steps=TRAIN_TIMED):
+    """``steps`` steps, each with the state before and after it and its
+    gradients snapshotted (what the checks replay), its metrics and LM
+    counts."""
+    ddp_spy_grads(tr)
+    records = []
+    for _ in range(steps):
+        before = ddp_snapshot(st)
+        st, m = tr.train_step(st, batch)
+        records.append({"before": before,
+                        "after": {**ddp_snapshot(st), "grads": tr.last_grads},
+                        "metrics": {k: float(v) for k, v in m.items()},
+                        "iters": tr.last_solver_iters.tolist()})
+        for k in ("train/loss_total", "train/grad_norm"):
+            require(np.isfinite(records[-1]["metrics"][k]),
+                    f"ddp: {k} {records[-1]['metrics'][k]}")
+    return st, records
+
+
+def ddp_batch_split(dev, cfg, sd, batch):
+    """Why case (ii) is checked in f32: one process, the bare model in eval
+    mode (no collective, no batch statistic), on the global batch and on
+    its two halves; the largest difference of each output over its largest
+    magnitude, in bf16 (``cfg``) and in f32. The convolutions of a batch
+    of 4 and of 8 round otherwise in bf16."""
+    import copy
+
+    import torch
+
+    from robust_pose_tpu_torch.train.trainer import PoseNetTrainer
+
+    out = {}
+    for prec, mp in (("bf16", True), ("f32", False)):
+        c = copy.deepcopy(cfg)
+        c["model"]["mixed_precision"] = mp
+        tr = PoseNetTrainer(c, device=dev)
+        tr.init_state(sd)
+        img1, img2, img1r, img2r, m1, m2, _, K, bl = tr._nhwc_batch(batch)
+        half = TRAIN_BATCH // 2
+        with torch.no_grad():
+            outs = [tr.model(img1[r], img2[r], K[r], bl[r], img1r[r], img2r[r],
+                             m1[r], m2[r])
+                    for r in (slice(None), slice(0, half), slice(half, None))]
+        out[prec] = {}
+        for name in ("flow", "stereo_flow2", "conf1", "conf2", "pose_tan"):
+            a = getattr(outs[0], name).float()
+            b = torch.cat([getattr(o, name) for o in outs[1:]]).float()
+            out[prec][name] = float((a - b).abs().max() / a.abs().max())
+        del tr, outs
+    return out
+
+
+def ddp_allreduce_profile(tr, st, batch):
+    """One more step under torch.profiler: the busy ms and idle share of
+    the step, and the train_step.allreduce span's host ms (under gloo the
+    collective itself, staged through the host; under NCCL its enqueue),
+    device ms (its window on the device timeline) and kernel ms."""
+    prof = profile_run(lambda: tr.train_step(st, batch), "train_step.")
+    span = prof.get("stages", {}).get("train_step.allreduce")
+    return {"busy_ms": prof.get("device_busy_ms"),
+            "idle_share": prof.get("idle_share"),
+            "allreduce_span": None if span is None else {
+                k: span[k] for k in ("host_ms", "device_ms", "kernel_ms",
+                                     "launches")}}
+
+
+def ddp_configs():
+    """Phase train's (a) and (b): train.yaml with stop_flow_grad, and RAFT
+    live through the lane-wise lookup."""
+    import copy
+
+    base = train_yaml()
+    cfg_a = copy.deepcopy(base)
+    cfg_a["train"]["stop_flow_grad"] = True
+    cfg_b = copy.deepcopy(base)
+    cfg_b["train"]["freeze_flow_steps"] = 0
+    cfg_b["model"]["lookup"] = "lanewise"
+    return {"a": cfg_a, "b": cfg_b}, train_weights_full(base["model"])
+
+
+def ddp_f32(cfgs):
+    """(a) and (b) in f32 (mixed_precision off), named "a_f32", "b_f32"."""
+    import copy
+
+    out = {}
+    for name, cfg in cfgs.items():
+        out[name + "_f32"] = c = copy.deepcopy(cfg)
+        c["model"]["mixed_precision"] = False
+    return out
+
+
+def ddp_row_digests(batch):
+    """Of each array of a batch, a digest of each row's bytes: which
+    samples a step read, without keeping them."""
+    import hashlib
+
+    return [[hashlib.blake2b(r.tobytes(), digest_size=16).hexdigest()
+             for r in x.cpu().numpy()] for x in batch]
+
+
+def ddp_cli_config(accum):
+    """Case (iii)'s CLI configuration: phase train_cli's train.yaml with
+    stop_flow_grad, DDP_CLI_STEPS steps, in f32 (a batch split rounds like
+    one process there: ddp_batch_split), ``accum`` microbatches."""
+    cfg = train_cli_config(DDP_CLI_STEPS)
+    cfg["train"]["stop_flow_grad"] = True
+    cfg["train"]["grad_accum"] = accum
+    cfg["model"]["mixed_precision"] = False
+    return cfg
+
+
+def ddp_cli(cfg, data, args_list, mesh=None):
+    """The training CLI's run with validation every 2 steps: its step
+    count, validation losses, final weights, and each step's metrics and
+    the digests of the rows it read (this rank's)."""
+    import contextlib
+    import copy
+    import io
+
+    from robust_pose_tpu_torch.scripts import train_posenet as cli
+    from robust_pose_tpu_torch.train.trainer import PoseNetTrainer
+
+    losses, steps = [], []
+    inner, freq, step = cli.run_val, cli.VAL_FREQ, PoseNetTrainer.train_step
+
+    def recorded(*a, **kw):
+        losses.append(inner(*a, **kw))
+        return losses[-1]
+
+    def train_step(self, state, batch):
+        state, m = step(self, state, batch)
+        steps.append({"rows": ddp_row_digests(batch),
+                      "metrics": {k: float(v) for k, v in m.items()}})
+        return state, m
+
+    cli.run_val, cli.VAL_FREQ = recorded, 2
+    PoseNetTrainer.train_step = train_step
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            state = cli.run(cli.build_parser().parse_args(args_list),
+                            copy.deepcopy(cfg), *data, mesh=mesh)
+    finally:
+        cli.run_val, cli.VAL_FREQ = inner, freq
+        PoseNetTrainer.train_step = step
+    return {"step": state.step, "losses": losses, "steps": steps,
+            "params": {k: v.detach().cpu() for k, v in state.params.items()}}
+
+
+def ddp_rank(rank, addr, root):
+    """One rank of cases (ii) and (iii), spawned: gloo on cuda:0 beside
+    the other rank. (ii): (a) and (b) on this rank's 4 rows of the global
+    batch, in bf16 and f32 (2 steps), and the local-statistics control,
+    (a) in f32 (1 step);
+    (iii): the training CLI of each DDP_CLI_CASES on this rank's rows of
+    each batch, checkpoints into ``root/cli/rank<r>/<case>``. Results to
+    ``root/rank<r>.pt``."""
+    import torch
+
+    from robust_pose_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from robust_pose_tpu_torch.train.trainer import PoseNetTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    res = {}
+    cfgs, sd = ddp_configs()
+    f32 = ddp_f32(cfgs)
+    with make_mesh(dev, init_method=addr, rank=rank, world_size=DDP_WORLD,
+                   backend="gloo", timeout_s=DDP_TIMEOUT_S) as mesh:
+        batch = shard_batch(mesh, train_batch_full(dev))
+        for name, cfg in {**cfgs, **f32, "a_f32_local": f32["a_f32"]}.items():
+            tr = PoseNetTrainer(cfg, mesh=mesh)
+            st = tr.init_state(sd)
+            out = None
+            if name.endswith("_local"):
+                # the heads' BatchNorm on this rank's own statistics
+                forward = tr.model.forward
+                tr.model.forward = lambda *a, mesh=None, **kw: forward(*a, **kw)
+            if name in cfgs:
+                # bf16, phase train's configuration: timed and profiled
+                st, records, out = ddp_steps(tr, st, batch)
+                out.update(ddp_allreduce_profile(tr, st, batch))
+            else:
+                st, records = ddp_records(tr, st, batch,
+                                          1 if name.endswith("_local") else TRAIN_TIMED)
+            res[name] = {"records": [{**r, "before": ddp_cpu(r["before"]),
+                                      "after": ddp_cpu(r["after"])}
+                                     for r in records], "out": out}
+            del tr, st, records
+            torch.cuda.empty_cache()
+        data = train_cli_data(root, ddp_cli_config(1))
+        for case, accum in DDP_CLI_CASES.items():
+            res["cli", case] = ddp_cli(ddp_cli_config(accum), data, [
+                "--name", "posenet", "--outpath", f"{root}/cli/rank{rank}/{case}",
+                "--restore_ckpt", f"{root}/init"], mesh)
+    torch.save(res, f"{root}/rank{rank}.pt")
+
+
+def ddp_cli_check(dev, root, sd, data, case, ranks, spread):
+    """Case (iii) for one of DDP_CLI_CASES: only rank 0 wrote, and its
+    checkpoints load into a world-1 trainer; of each step, the ranks' rows
+    put together in the JAX layout (of each microbatch, the ranks' shares
+    in rank order) are a world-1 CLI run's global batch, and the metrics
+    are its own within DDP_RTOL plus 3 times ``spread`` (relative: how far
+    case (ii)'s f32 metrics moved under a 1e-7 input change; the second
+    step starts from states that differ, and the f32 LM's counts follow
+    the last bits); the weights within 2 lr a step plus 1e-4 of the leaf's
+    largest (RAFT bit for bit), the validation loss within DDP_RTOL."""
+    import os
+
+    import torch
+
+    from robust_pose_tpu_torch.train.trainer import PoseNetTrainer
+    from robust_pose_tpu_torch.utils.checkpoints import load_checkpoint_any
+
+    accum = DDP_CLI_CASES[case]
+    cfg = ddp_cli_config(accum)
+    c0, c1 = (r["cli", case] for r in ranks)
+    what = f"ddp (iii) {case}"
+    require(sorted(os.listdir(f"{root}/cli/rank0/{case}")) == ["posenet", "posenet_last"]
+            and not os.path.exists(f"{root}/cli/rank1"),
+            f"{what}: checkpoints written by a rank other than 0")
+    require(c0["step"] == c1["step"] == DDP_CLI_STEPS and len(c0["losses"]) == 1
+            and c0["losses"] == c1["losses"] and np.isfinite(c0["losses"]).all(),
+            f"{what}: steps {c0['step']}, {c1['step']}, losses "
+            f"{c0['losses']}, {c1['losses']}")
+    one = ddp_cli(cfg, data, [
+        "--name", "posenet", "--outpath", f"{root}/cli/world1/{case}",
+        "--restore_ckpt", f"{root}/init"])
+    require(len(one["steps"]) == len(c0["steps"]) == len(c1["steps"]) == DDP_CLI_STEPS,
+            f"{what}: steps recorded {len(one['steps'])}, {len(c0['steps'])}")
+    metrics_rel = []
+    for s, a, b in zip(one["steps"], c0["steps"], c1["steps"]):
+        require(a["metrics"] == b["metrics"] and a["rows"][0] != b["rows"][0],
+                f"{what}: the ranks' metrics differ or their images are equal")
+        for want, x0, x1 in zip(s["rows"], a["rows"], b["rows"]):
+            m = len(x0) // accum
+            got = [d for i in range(accum) for x in (x0, x1)
+                   for d in x[i * m:(i + 1) * m]]
+            require(got == want,
+                    f"{what}: the ranks' rows are not world 1's global batch")
+        metrics_rel.append({k: abs(a["metrics"][k] - v) / abs(v)
+                            for k, v in s["metrics"].items()})
+    metrics_tol = DDP_RTOL + 3 * spread
+    metrics_worst = max(max(m.values()) for m in metrics_rel)
+    lr = cfg["train"]["learning_rate"]
+    worst = {"params_over_tol": 0.0, "at": None}
+    for which in ("posenet", "posenet_last"):
+        got = load_checkpoint_any(f"{root}/cli/rank0/{case}/{which}")["state_dict"]
+        want = load_checkpoint_any(f"{root}/cli/world1/{case}/{which}")["state_dict"]
+        tr = PoseNetTrainer(cfg, device=dev)
+        tr.init_state(got)
+        loaded = tr.model.state_dict()
+        require(all(torch.equal(loaded[k].cpu(), v) for k, v in got.items()),
+                f"{what}: {which} does not load into a world-1 trainer")
+        for k, w in want.items():
+            if k.startswith("flow."):
+                require(torch.equal(got[k], w) and torch.equal(got[k], sd[k]),
+                        f"{what}: RAFT moved: {k}")
+                continue
+            tol = 2 * lr * DDP_CLI_STEPS + 1e-4 * float(w.abs().max())
+            r = float((got[k] - w).abs().max()) / tol
+            if r > worst["params_over_tol"]:
+                worst = {"params_over_tol": r, "at": f"{which} {k}"}
+        del tr
+    val_rel = abs(c0["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
+    require(worst["params_over_tol"] <= 1.0 and val_rel <= DDP_RTOL
+            and metrics_worst <= metrics_tol,
+            f"{what}: off the world-1 CLI: {worst}, metrics rel {metrics_rel} "
+            f"(tolerance {metrics_tol}), val loss {c0['losses']} against "
+            f"{one['losses']}")
+    return {"grad_accum": accum, "val_loss": c0["losses"],
+            "world1_val_loss": one["losses"], "val_loss_rel_diff": val_rel,
+            "metrics_rel_diff": metrics_rel, "metrics_rel_tol": metrics_tol,
+            "metrics": [a["metrics"] for a in c0["steps"]],
+            "rows_are_world1_batch": True, "vs_world1_weights": worst}
+
+
+def phase_ddp(dev, smi):
+    """Data parallelism at full width (configuration/train.yaml, 512x640,
+    global batch 8, phase train's weights and batch, TF32 off), four cases:
+    (i) a world of 1 under NCCL through the mesh path, (a) and (b), against
+    the bare trainer's steps from the same states; (ii) a world of 2 under
+    gloo, both ranks on cuda:0 (spawned), 4 rows a rank: (a) and (b) timed
+    and profiled in bf16, the ranks' states bit for bit, and each step of
+    (a) and (b) in f32 against the bare trainer's on the whole batch from
+    the same state (in bf16 a batch of 4 and one of 8 round otherwise:
+    ddp_batch_split), and the local-statistics control, which must fail
+    that check; (iii) the training CLI at world 2, in f32, with grad_accum
+    1 and 2 (ddp_cli_check); (iv) bench_train_step at world 1 under NCCL
+    beside phase train_cli's."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from robust_pose_tpu_torch.parallel.mesh import free_tcp_address, make_mesh
+    from robust_pose_tpu_torch.scripts import bench_train_step
+    from robust_pose_tpu_torch.train.trainer import PoseNetTrainer
+    from robust_pose_tpu_torch.utils.checkpoints import save_checkpoint
+
+    t_phase = time.perf_counter()
+    seconds = {}
+    cfgs, sd = ddp_configs()
+    batch = train_batch_full(dev)
+    # (i) and (iv): a world of 1 under NCCL
+    with make_mesh(torch.device("cuda", 0), init_method=free_tcp_address(),
+                   rank=0, world_size=1, timeout_s=DDP_TIMEOUT_S) as mesh:
+        for name, cfg in cfgs.items():
+            tr = PoseNetTrainer(cfg, mesh=mesh)
+            st = tr.init_state(sd)
+            st, records, out = ddp_steps(tr, st, batch)
+            out.update(ddp_allreduce_profile(tr, st, batch))
+            del tr, st
+            worst = ddp_check(ddp_replay(dev, cfg, records, batch),
+                              f"ddp (i) {name}")
+            bare = TRAIN_STEP_S.get(f"train {name}")
+            emit({"phase": "ddp", "case": "i", "config": name, "card": smi,
+                  "world_size": 1, "backend": mesh.backend, "batch": TRAIN_BATCH,
+                  **out, "bare_step_s": bare,
+                  "step_over_bare": None if bare is None else out["step_s"] / bare,
+                  "vs_bare_trainer": worst})
+            del records
+            torch.cuda.empty_cache()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            bench = bench_train_step.main(["--batch", str(TRAIN_BATCH),
+                                           "--steps", "2"], mesh=mesh)
+        span = bench["remat"]["allreduce_span"]
+        require(bench["remat"]["fits"] and np.isfinite(bench["remat"]["ms"])
+                and span["host_ms"] is not None and span["device_ms"] is not None,
+                f"ddp (iv): {bench}")
+        emit({"phase": "ddp", "case": "iv", "card": smi, "world_size": 1,
+              "bench_train_step": bench,
+              "printed": printed.getvalue().splitlines(),
+              "train_cli_bench": {k: TRAIN_CLI_BENCH.get(k)
+                                  for k in ("noremat", "remat")}})
+    torch.cuda.empty_cache()
+    seconds["i_iv"] = time.perf_counter() - t_phase
+    # (ii) and (iii): a world of 2 under gloo, both ranks on cuda:0
+    with tempfile.TemporaryDirectory() as root:
+        write_train_cli_sequences(root)
+        save_checkpoint(f"{root}/init", sd, {"model": ddp_cli_config(1)["model"]})
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(ddp_rank, args=(free_tcp_address(), root),
+                                 nprocs=DDP_WORLD, join=False,
+                                 start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                require(time.perf_counter() - t0 < DDP_JOIN_S,
+                        "ddp: the spawned ranks did not finish")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+        seconds["spawned_ranks"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = [torch.load(f"{root}/rank{r}.pt", weights_only=False)
+                 for r in range(DDP_WORLD)]
+        split = ddp_batch_split(dev, cfgs["a"], sd, batch)
+        f32 = ddp_f32(cfgs)
+        for name, cfg in {**cfgs, **f32, "a_f32_local": f32["a_f32"]}.items():
+            r0, r1 = (r[name] for r in ranks)
+            control = name.endswith("_local")
+            for a, b in zip(r0["records"], r1["records"]):
+                # the control's ranks keep their own running statistics
+                require(control or a["metrics"] == b["metrics"] and all(
+                    torch.equal(a["after"][g][k], b["after"][g][k])
+                    for g in DDP_GROUPS for k in a["after"][g]),
+                    f"ddp (ii) {name}: the ranks' states differ")
+            line = {"phase": "ddp", "case": "ii", "config": name, "card": smi,
+                    "world_size": DDP_WORLD, "backend": "gloo",
+                    "device": "cuda:0", "rows_a_rank": TRAIN_BATCH // DDP_WORLD,
+                    "ranks_bit_equal": not control}
+            if name in cfgs:
+                line.update(ranks=[r[name]["out"] for r in ranks],
+                            bf16_batch_split=split)
+            elif control:
+                line["control_vs_world1"] = ddp_control(
+                    ddp_replay(dev, cfg, r0["records"], batch, perturb=True),
+                    f"ddp (ii) {name}")
+            else:
+                # f32: a batch split rounds like one process (split["f32"])
+                line["vs_world1"] = ddp_check(
+                    ddp_replay(dev, cfg, r0["records"], batch, perturb=True),
+                    f"ddp (ii) {name}")
+            emit(line)
+            if name == "a_f32":
+                spread = max(c["metrics"]["bare_spread_max_rel"]
+                             for c in line["vs_world1"]["steps"])
+        seconds["ii_checks"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        data = train_cli_data(root, ddp_cli_config(1))
+        for case in DDP_CLI_CASES:
+            emit({"phase": "ddp", "case": "iii", "config": case, "card": smi,
+                  "world_size": DDP_WORLD, "backend": "gloo",
+                  "steps": DDP_CLI_STEPS,
+                  **ddp_cli_check(dev, root, sd, data, case, ranks, spread)})
+        seconds["iii_checks"] = time.perf_counter() - t0
+    emit({"phase": "ddp", "seconds": time.perf_counter() - t_phase,
+          "by_part": seconds})
 
 
 def main():
@@ -3814,6 +4497,11 @@ def main():
         phase_train(dev, smi)
         phase_train_cli(dev, smi)
         return 0
+    if sys.argv[1:] == ["ddp"]:
+        # phase train (the bare step) and data parallelism; no result line
+        phase_train(dev, smi)
+        phase_ddp(dev, smi)
+        return 0
     kernels = phase_kernels(dev)
     phase_slice(dev)
     launches = phase_main(dev, smi)
@@ -3828,6 +4516,7 @@ def main():
     phase_cli(dev, smi)
     phase_ops_tail(dev)
     phase_train_cli(dev, smi)
+    phase_ddp(dev, smi)
     phase_bench(dev, smi)
     # each kernel's launches on its own path: K1-K3 in the f2f main path
     # (K3: the LM solve kernel, one launch a window, every build inside),

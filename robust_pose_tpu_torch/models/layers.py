@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from robust_pose_tpu_torch.parallel.mesh import all_reduce_sum
+
 Tensor = torch.Tensor
 
 
@@ -73,7 +75,17 @@ class BatchNorm(nn.Module):
     ``max(E[x^2] - E[x]^2, 0)`` and updates the running statistics as flax
     does, ``ra = 0.99 ra + 0.01 batch`` (flax's momentum 0.99) with the
     biased variance (``F.batch_norm`` would use the unbiased one and
-    torch's momentum convention)."""
+    torch's momentum convention).
+
+    ``train=True`` with ``mesh`` (a ``parallel.mesh.Mesh`` with a process
+    group, world 1 included) takes the statistics of the global batch, as
+    the JAX SPMD step does: each rank's per-channel means of x and x^2,
+    divided by the world size, summed by one differentiable all-reduce
+    (its backward carries the other ranks' terms). The ranks hold equal
+    shares of the batch (``parallel.mesh.shard_batch``), so that is the
+    global mean; at world 1 the division and the sum leave today's bits.
+    The running statistics then take the global values, equal on every
+    rank. Without a process group the statistics are the local batch's."""
 
     MOMENTUM = 0.99
 
@@ -85,12 +97,15 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x: Tensor, train: bool = False) -> Tensor:
+    def forward(self, x: Tensor, train: bool = False, mesh=None) -> Tensor:
         xf = x.float()
         if train:
             mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
-                              min=0.0)
+            sq = (xf * xf).mean(dim=(0, 2, 3))
+            if mesh is not None and mesh.distributed:
+                mean, sq = all_reduce_sum(
+                    mesh, torch.stack([mean, sq]) / mesh.world_size)
+            var = torch.clamp(sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.MOMENTUM
                 self.running_mean.copy_(m * self.running_mean

@@ -22,6 +22,7 @@ from robust_pose_tpu_torch.models.layers import BatchNorm
 from robust_pose_tpu_torch.models.raft import RAFT, SplitConv1x1
 from robust_pose_tpu_torch.models.unet import TinyUNet
 from robust_pose_tpu_torch.ops.geometry import create_img_coords, depth_to_pcl
+from robust_pose_tpu_torch.parallel.mesh import batch_sharding
 from robust_pose_tpu_torch.ops.warp import (
     eighth_from_fullres_warp,
     warp_pcl_mask,
@@ -119,11 +120,12 @@ class PoseNet(nn.Module):
 
     def get_weight_maps(self, pcl1, depth2, intrinsics, image1l, image2l,
                         mask2, time_flow, stereo_flow1, stereo_flow2, hidden,
-                        context, train: bool = False):
+                        context, train: bool = False, mesh=None):
         """Warp frame-2 quantities into frame-1 correspondence and predict
         the 2D/3D confidence maps; the point-cloud warp fetches one packed
         channel, the image/stereo-flow channels are warped at the 1/8
-        downsample's taps only."""
+        downsample's taps only. ``train`` with ``mesh``: the heads'
+        BatchNorm statistics of the global batch."""
         pcl2_w, mask2 = warp_pcl_mask(depth2, mask2, time_flow, intrinsics)
         if self.config.get("use_weights", True):
             inp1 = eighth_from_fullres_warp(
@@ -132,9 +134,9 @@ class PoseNet(nn.Module):
                 torch.cat([stereo_flow2, image2l], dim=-1), time_flow)
             inp2 = torch.cat([five_c, eighth_from_fullres_warp(pcl2_w)], dim=-1)
             feat = torch.cat([inp1, hidden, context], dim=-1)
-            conf1 = torch.sigmoid(self.weight_head_2d(feat, train))
+            conf1 = torch.sigmoid(self.weight_head_2d(feat, train, mesh))
             feat3 = torch.cat([inp1, inp2, hidden, context], dim=-1)
-            conf2 = torch.sigmoid(self.weight_head_3d(feat3, train))
+            conf2 = torch.sigmoid(self.weight_head_3d(feat3, train, mesh))
         else:
             conf1 = torch.ones(mask2.shape, dtype=torch.float32,
                                device=mask2.device)
@@ -304,7 +306,7 @@ class PoseNet(nn.Module):
 
     def forward(self, image1l, image2l, intrinsics, baseline, image1r, image2r,
                 mask1=None, mask2=None, train: bool = False,
-                dropout_generator=None) -> PoseNetOutputs:
+                dropout_generator=None, mesh=None) -> PoseNetOutputs:
         """The JAX package's training ``__call__``: both stereo pairs and the
         temporal pair in one RAFT pass of 3B pairs, (1l,1r), (2l,2r),
         (1l,2l), with the 4 unique images through fnet and the 2 left ones
@@ -313,17 +315,29 @@ class PoseNet(nn.Module):
         with masks drawn from ``dropout_generator``, fnet's then cnet's), and
         the differentiable pose solve. With ``stop_flow_grad`` RAFT runs
         without autograd (the JAX package's ``stop_gradient`` on the flows,
-        hidden state and context)."""
+        hidden state and context). ``mesh`` (``parallel.mesh.Mesh``): this
+        call holds one rank's rows of a global batch; the heads' BatchNorm
+        takes the global batch's statistics and dropout the global batch's
+        masks, as one process on the whole batch would."""
         b = image1l.shape[0]
+        fnet_rows = cnet_rows = None
+        if mesh is not None:
+            # this rank's rows of the global encoder batches: 4 blocks of
+            # the global batch through fnet, the first 2 through cnet
+            g = b * mesh.world_size
+            own = torch.as_tensor(batch_sharding(mesh, g))
+            idx = torch.cat([k * g + own for k in range(4)])
+            fnet_rows, cnet_rows = (4 * g, idx), (2 * g, idx[:2 * b])
         with torch.set_grad_enabled(torch.is_grad_enabled()
                                     and not self.config.get("stop_flow_grad", False)):
             enc = self.flow.encode_fnet(torch.cat([image1l, image2l, image1r,
                                                    image2r]), train,
-                                        dropout_generator)
+                                        dropout_generator, fnet_rows)
             e1l, e2l = enc[:b], enc[b:2 * b]
             e1r, e2r = enc[2 * b:3 * b], enc[3 * b:]
             net_u, inp_u = self.flow.encode_cnet(torch.cat([image1l, image2l]),
-                                                 train, dropout_generator)
+                                                 train, dropout_generator,
+                                                 cnet_rows)
             flows, hidden, context = self.flow.flow_from_features(
                 torch.cat([e1l, e2l, e1l]), torch.cat([e1r, e2r, e2l]),
                 torch.cat([net_u[:b], net_u[b:], net_u[:b]]),
@@ -339,7 +353,7 @@ class PoseNet(nn.Module):
         pcl1 = depth_to_pcl(depth1, intrinsics, self.img_coords)
         conf1, conf2, pcl2, mask2 = self.get_weight_maps(
             pcl1, depth2, intrinsics, image1l, image2l, mask2, time_flow,
-            stereo_flow1, stereo_flow2, hidden, context, train)
+            stereo_flow1, stereo_flow2, hidden, context, train, mesh)
         pose, pose_tan, niter = self._solve(
             time_flow, pcl1, pcl2, conf1, conf2, mask1, mask2, intrinsics)
         return PoseNetOutputs(pose, pose_tan, depth1, depth2, conf1, conf2,

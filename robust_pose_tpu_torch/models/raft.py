@@ -51,7 +51,8 @@ one keep draw per (sample, channel), and scales the kept ones by
 drawn from the generator the caller passes, before the encoder runs and
 outside any recomputed region: ``torch.utils.checkpoint`` restores only
 the default generators, so a mask drawn inside would differ in the
-backward pass.
+backward pass. A data-parallel rank draws the global batch's masks and
+keeps its rows (``encode_fnet``'s ``rows``).
 """
 from __future__ import annotations
 
@@ -570,25 +571,34 @@ class RAFT(nn.Module):
         x = nchw(2.0 * (images / 255.0) - 1.0)
         return x.contiguous(memory_format=torch.channels_last)
 
-    def _encode(self, net, images, train, generator):
+    def _encode(self, net, images, train, generator, rows):
         keep = None
         if train and self.dropout > 0.0:
             if generator is None:
                 raise ValueError("dropout in training needs a generator")
             # drawn here, outside the recomputed region (see the module doc)
-            keep = dropout_keep(images.shape[0], net.conv2.out_channels,
-                                self.dropout, generator)
+            total, idx = (images.shape[0], None) if rows is None else rows
+            keep = dropout_keep(total, net.conv2.out_channels, self.dropout,
+                                generator)
+            if idx is not None:
+                keep = keep[idx.to(keep.device)]
         return nhwc(self._run(net, self._prep(images), keep))
 
     def encode_fnet(self, images: Tensor, train: bool = False,
-                    generator=None) -> Tensor:
+                    generator=None, rows=None) -> Tensor:
         """(B, H, W, 3) in [0, 255] -> (B, H/8, W/8, 256 or 128 small);
-        ``train`` applies dropout with masks from ``generator``."""
-        return self._encode(self.fnet, images, train, generator)
+        ``train`` applies dropout with masks from ``generator``. ``rows``
+        ``(total, index)``: ``images`` are rows ``index`` of a batch of
+        ``total`` (a data-parallel rank's share); the masks are drawn for
+        the whole batch and these rows kept, so the rank drops what one
+        process on the whole batch drops."""
+        return self._encode(self.fnet, images, train, generator, rows)
 
-    def encode_cnet(self, images: Tensor, train: bool = False, generator=None):
-        """-> (net = tanh, inp = relu), each (B, H/8, W/8, hdim / cdim)."""
-        c = self._encode(self.cnet, images, train, generator)
+    def encode_cnet(self, images: Tensor, train: bool = False, generator=None,
+                    rows=None):
+        """-> (net = tanh, inp = relu), each (B, H/8, W/8, hdim / cdim);
+        dropout as in ``encode_fnet``."""
+        c = self._encode(self.cnet, images, train, generator, rows)
         return torch.tanh(c[..., :self.hdim]), F.relu(c[..., self.hdim:])
 
     def _route(self, t: Tensor) -> str:

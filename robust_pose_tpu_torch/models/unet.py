@@ -23,8 +23,8 @@ class DownBlock(nn.Module):
         self.norm = BatchNorm(cout)
         self.conv2 = Conv2d(cout, cout, 3, 1, 0, dtype)
 
-    def forward(self, x, train: bool = False):
-        return self.conv2(F.relu(self.norm(self.conv1(x), train)))
+    def forward(self, x, train: bool = False, mesh=None):
+        return self.conv2(F.relu(self.norm(self.conv1(x), train, mesh)))
 
 
 class UpBlock(nn.Module):
@@ -34,8 +34,8 @@ class UpBlock(nn.Module):
         self.norm = BatchNorm(cout)
         self.conv2 = Conv2d(cout, cout, 3, 1, 0, dtype)
 
-    def forward(self, x, train: bool = False):
-        return self.conv2(self.norm(F.relu(self.conv1(x)), train))
+    def forward(self, x, train: bool = False, mesh=None):
+        return self.conv2(self.norm(F.relu(self.conv1(x)), train, mesh))
 
 
 def _center_crop(x: Tensor, h: int, w: int) -> Tensor:
@@ -59,14 +59,15 @@ class UNet(nn.Module):
             setattr(self, f"dec{i}", UpBlock(dec_chs[i], dec_chs[i + 1], dtype))
         self.head = Conv2d(dec_chs[-1], num_class, 1, 1, 0, torch.float32)
 
-    def forward(self, x: Tensor, train: bool = False) -> Tensor:
+    def forward(self, x: Tensor, train: bool = False, mesh=None) -> Tensor:
         """``train``: the blocks' BatchNorms use and update batch
-        statistics (flax ``use_running_average=not train``)."""
+        statistics (flax ``use_running_average=not train``), those of the
+        global batch under ``mesh`` (``layers.BatchNorm``)."""
         x = x.permute(0, 3, 1, 2)
         feats = []
         n_enc = len(self.enc_chs) - 1
         for i in range(n_enc):
-            x = getattr(self, f"enc{i}")(x, train)
+            x = getattr(self, f"enc{i}")(x, train, mesh)
             feats.append(x)
             if i < n_enc - 1:
                 x = F.max_pool2d(x, 2, 2)
@@ -76,7 +77,7 @@ class UNet(nn.Module):
             x = getattr(self, f"upconv{i}")(x)
             skip = _center_crop(feats[i + 1], x.shape[2], x.shape[3])
             x = getattr(self, f"dec{i}")(torch.cat([x, skip.to(x.dtype)], dim=1),
-                                         train)
+                                         train, mesh)
         x = self.head(x.float())
         x = F.interpolate(x, size=self.out_sz, mode="bilinear",
                           align_corners=False)
@@ -91,5 +92,5 @@ class TinyUNet(nn.Module):
         enc = (in_channels, 16, 32, 64)[: levels + 1]
         self.unet = UNet(enc, tuple(reversed(enc[1:])), output_size, dtype=dtype)
 
-    def forward(self, x: Tensor, train: bool = False) -> Tensor:
-        return self.unet(x, train)
+    def forward(self, x: Tensor, train: bool = False, mesh=None) -> Tensor:
+        return self.unet(x, train, mesh)

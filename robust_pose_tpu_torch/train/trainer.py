@@ -1,6 +1,6 @@
-"""PoseNet training on one card (port of
-``robust_pose_tpu/train/trainer.py``): the optimizer chain, the RAFT
-freeze schedule, gradient accumulation and the train/val steps.
+"""PoseNet training (port of ``robust_pose_tpu/train/trainer.py``): the
+optimizer chain, the RAFT freeze schedule, gradient accumulation, the
+train/val steps and their data-parallel meaning.
 
 * Optimizer: optax's ``chain(clip_by_global_norm(grad_clip),
   adamw(learning_rate, weight_decay, epsilon))`` written out: the update is
@@ -27,14 +27,24 @@ freeze schedule, gradient accumulation and the train/val steps.
   ``PRNGKey(1234)``: every microbatch of a step gets the same stream, and a
   resumed run draws what the uninterrupted one would. The bits differ from
   JAX's; the distribution is the same.
+* Data parallelism (``mesh``: a ``parallel.mesh.Mesh`` with a process
+  group): each rank holds its rows of the global batch
+  (``parallel.mesh.shard_batch``, the JAX trainer's layout under
+  ``grad_accum``) and the step is the one-process step on the whole batch,
+  as the JAX SPMD step is: the heads' BatchNorm takes the global batch's
+  statistics, dropout the global (micro)batch's masks (this rank's rows),
+  the gradients are averaged over ranks in one flat all-reduce (span
+  ``train_step.allreduce``) and then divided by ``grad_accum``, and the
+  metrics, ``val/loss`` and ``last_solver_iters`` are the global batch's,
+  gathered in the JAX package's row order. ``init_state`` broadcasts the
+  state from rank 0, so the ranks' states stay bit-equal.
 * Resume: ``init_state(variables=utils.checkpoints.load_train_state(path))``
   restores the weights, BatchNorm statistics, Adam moments, count and step.
 
 The parameters, BatchNorm statistics and optimizer moments are updated in
 place: a ``TrainState`` holds the model's own tensors. BatchNorm follows
 the ``train`` argument of ``PoseNet.forward`` (as flax's
-``use_running_average`` does), not the module's train/eval flag. Single
-card; the data-parallel mesh waits (ROADMAP).
+``use_running_average`` does), not the module's train/eval flag.
 """
 from __future__ import annotations
 
@@ -46,6 +56,12 @@ from torch.profiler import record_function
 
 from robust_pose_tpu_torch.device import resolve_device
 from robust_pose_tpu_torch.models.posenet import PoseNet
+from robust_pose_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather_rows,
+    mean_bucket,
+    replicate,
+)
 from robust_pose_tpu_torch.train.losses import loss_metrics, supervised_pose_loss
 
 Tensor = torch.Tensor
@@ -129,17 +145,28 @@ def make_optimizer(train_cfg: Dict, params: Dict[str, Tensor],
 
 
 class PoseNetTrainer:
-    """Train and validation steps of a PoseNet on one device.
+    """Train and validation steps of a PoseNet on one device, or on one
+    rank of a data-parallel ``mesh``.
 
     :param config: the training config (``configuration/train.yaml``
         layout: model / train / image_shape keys)
     :param device: ``cuda`` unless given (``device="cpu"`` for the plain
-        versions)
+        versions); the mesh's device when a mesh is given
+    :param mesh: a ``parallel.mesh.Mesh``; with a process group the steps
+        take this rank's rows of each global batch (see the module doc)
     """
 
-    def __init__(self, config: Dict, freeze_flow: bool = True, device=None):
+    def __init__(self, config: Dict, freeze_flow: bool = True, device=None,
+                 mesh: Optional[Mesh] = None):
         self.config = config
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
+        # the collectives run only with a process group (world 1 included)
+        self.mesh = mesh if mesh is not None and mesh.distributed else None
         self._train_cfg = config["train"]
         model_cfg = dict(config["model"])
         model_cfg["image_shape"] = tuple(config["image_shape"])
@@ -183,6 +210,10 @@ class PoseNetTrainer:
                            {k: v.to(self.device).clone()
                             for k, v in variables["nu"].items()})
             step = int(variables["step"])
+        if self.mesh is not None:
+            # rank 0's weights, statistics and moments on every rank
+            replicate(self.mesh, [*params.values(), *stats.values(),
+                                  *opt.mu.values(), *opt.nu.values()])
         return TrainState(params, stats, opt, step)
 
     def _nhwc_batch(self, batch):
@@ -207,15 +238,28 @@ class PoseNetTrainer:
         out = self.model(img1, img2, K, bl, img1r, img2r, mask1, mask2,
                          train=train,
                          dropout_generator=self.dropout_generator(step)
-                         if train else None)
+                         if train else None, mesh=self.mesh)
         self.last_solver_iters = out.solver_iters
         return supervised_pose_loss(out.pose_tan, gt)
+
+    def _global_rows(self, rows: Tensor) -> Tensor:
+        """Per-sample rows (accum, B / (accum W), ...) of this rank -> the
+        global batch's (B, ...) in the JAX trainer's order: microbatch by
+        microbatch, each in rank order."""
+        if self.mesh is None:
+            return rows.reshape(-1, *rows.shape[2:])
+        w, (accum, m) = self.mesh.world_size, rows.shape[:2]
+        every = all_gather_rows(self.mesh, rows)       # (W * accum, m, ...)
+        return every.view(w, accum, m, *rows.shape[2:]).transpose(0, 1).reshape(
+            -1, *rows.shape[2:])
 
     def train_step(self, state: TrainState, batch):
         """One optimizer step; updates ``state`` in place and returns
         ``(state, metrics)`` with ``train/loss_rot``, ``train/loss_trans``,
         ``train/loss_total`` and ``train/grad_norm`` (of the averaged
-        gradients, before the freeze and the clip)."""
+        gradients, before the freeze and the clip). Under a mesh ``batch``
+        is this rank's rows of the global batch and every output is the
+        global batch's."""
         accum = int(self._train_cfg.get("grad_accum", 1))
         batch = self._nhwc_batch(batch)
         b = batch[0].shape[0]
@@ -233,13 +277,23 @@ class PoseNetTrainer:
             with record_function("train_step.backward"):
                 loss_pose.mean().backward()
             losses.append(loss_pose.detach())
+        # the parameters with a gradient: the same set on every rank
+        live = [k for k, p in state.params.items() if p.grad is not None]
+        summed = [state.params[k].grad for k in live]
+        if self.mesh is not None:
+            with record_function("train_step.allreduce"):
+                summed = mean_bucket(self.mesh, summed)
         with record_function("train_step.update"):
-            grads = {k: None if p.grad is None else p.grad / accum
-                     for k, p in state.params.items()}
-            metrics = loss_metrics(torch.cat(losses), "train")
+            grads = dict.fromkeys(state.params)
+            grads.update({k: g / accum for k, g in zip(live, summed)})
+            metrics = loss_metrics(self._global_rows(torch.stack(losses)),
+                                   "train")
             metrics["train/grad_norm"] = global_norm(
                 g for g in grads.values() if g is not None)
             self.optimizer.update(state.params, grads, state.opt_state)
+            if self.mesh is not None:
+                self.last_solver_iters = self._global_rows(
+                    self.last_solver_iters[None])
         for p in state.params.values():
             p.grad = None
         state.step += 1
@@ -247,7 +301,13 @@ class PoseNetTrainer:
 
     @torch.no_grad()
     def val_step(self, state: TrainState, batch) -> Dict[str, Tensor]:
-        loss_pose = self._forward(self._nhwc_batch(batch), train=False)
+        """Validation metrics of a batch (under a mesh: this rank's rows;
+        the metrics and ``val/loss``, a nanmean, are the global batch's)."""
+        loss_pose = self._global_rows(
+            self._forward(self._nhwc_batch(batch), train=False)[None])
+        if self.mesh is not None:
+            self.last_solver_iters = self._global_rows(
+                self.last_solver_iters[None])
         m = loss_metrics(loss_pose, "val")
         m["val/loss"] = torch.nanmean(loss_pose)
         return m

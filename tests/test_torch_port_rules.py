@@ -152,6 +152,31 @@ def test_trainer_needs_a_device_choice_without_cuda():
         PoseNetTrainer(cfg)
 
 
+@pytest.mark.parametrize("how", ["world1", "torchrun", "init_method"])
+def test_make_mesh_needs_a_device_choice_without_cuda(monkeypatch, how):
+    """``parallel.mesh.make_mesh`` without a card and without a device
+    raises, for a world of 1, under torchrun's environment and with an
+    explicit address, before any process group is made."""
+    import torch.distributed as dist
+
+    from robust_pose_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: cuda is the default here")
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    kw = {}
+    if how == "torchrun":
+        for k, v in (("WORLD_SIZE", "2"), ("RANK", "1"), ("LOCAL_RANK", "1"),
+                     ("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", "1")):
+            monkeypatch.setenv(k, v)
+    elif how == "init_method":
+        kw = {"init_method": "tcp://127.0.0.1:1", "rank": 0, "world_size": 2}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh(**kw)
+    assert not dist.is_initialized()
+
+
 def test_training_clis_need_a_device_choice_without_cuda(tmp_path):
     """The training CLI (``main`` and ``run``), ``bench_train_step`` and the
     streaming ``bench`` raise without a card unless the CPU is asked for
