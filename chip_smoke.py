@@ -9,8 +9,9 @@
                                     # 48 fresh trainers; no result line
     python3 chip_smoke.py cli       # phases 1, 4 and 14; no result line
     python3 chip_smoke.py train_cli # phases 1, 7 and 16; no result line
-    python3 chip_smoke.py bench     # phases 1, 4, 9 and 18; no result line
+    python3 chip_smoke.py bench     # phases 1, 4, 9 and 21; no result line
     python3 chip_smoke.py ddp       # phases 1, 7 and 17; no result line
+    python3 chip_smoke.py tools     # phases 1, 18, 19 and 20; no result line
 
 Phases, each printing one JSON line:
 
@@ -182,7 +183,30 @@ Phases, each printing one JSON line:
                   and validation loss are held to that run's; (iv)
                   bench_train_step at world 1 under NCCL beside phase
                   train_cli's.
-18. bench      -- the port's streaming bench (robust_pose_tpu_torch.
+18. parity     -- the golden-parity harness (robust_pose_tpu_torch.
+                  scripts.verify_parity) against the reference network
+                  (robust_pose_tpu_torch.reference, on the CPU in f32):
+                  --selftest at 384x512, 5 frames, 4 GRU iterations, the
+                  port on the card in f32 (K1, K2 and the LM solve kernel
+                  each launched at least once a frame), recording the
+                  reference's outputs; every row PASS, printed with its
+                  value and tolerance; then --golden on that recording in
+                  a second process: the same rows, bit for bit in value.
+19. roofline   -- robust_pose_tpu_torch.scripts.roofline: the f2f (window
+                  8), f2m (window 4, 100 LM iterations) and --train (batch
+                  8, RAFT live through K4/K5) rows (counted
+                  GFLOP and GB a frame, measured ms, bounds, MFU <= 100 %,
+                  device-memory utilization, the binding resource), a
+                  second counted run of each with the same FLOPs and rows
+                  that sum to the totals, and each kernel wrapper's
+                  registered FLOPs and bytes at phase 2's shapes equal to
+                  the numbers its bound is computed from.
+20. tools      -- the profile tools on the card: profile_trace (f2f, 2
+                  windows; its groups' ms within 1 % of the busy ms),
+                  profile_stages, profile_f2m, profile_encoder (B = 1 and
+                  16, K2 against the plain norm and conv only) and
+                  ab_exact_render over 4 f2m frames.
+21. bench      -- the port's streaming bench (robust_pose_tpu_torch.
                   scripts.bench.main, bench.py's defaults) in this process:
                   its one JSON line with bench.py's keys, FPS finite and
                   positive, success rates in [0, 1], LM iterations within
@@ -201,15 +225,16 @@ import time
 
 import numpy as np
 
+from robust_pose_tpu_torch.utils import costs, profiling
+from robust_pose_tpu_torch.utils.costs import window_taps
+from robust_pose_tpu_torch.utils.profiling import device_events, profile_run
+
 H, W = 512, 640
 T_WINDOW = 8
 N_TIMED = 4                   # timed windows of the main path
 TRAIN_BATCH = 8               # configuration/train.yaml's batch_size
 TRAIN_TIMED = 2               # timed training steps per configuration
 FX = 500.0
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
-BF16_FLOPS = 989e12           # dense tensor-core bf16
-F32_FLOPS = 67e12             # f32 outside the tensor cores
 
 
 def emit(obj):
@@ -253,70 +278,6 @@ def host_time_us(fn, reps=20, warmup=3):
     dt = time.perf_counter() - t0
     torch.cuda.synchronize()
     return dt / reps * 1e6
-
-
-profiler_retries = 0          # device_events traces retaken (events lost)
-PROFILER_MARKS = 8            # marker kernels that open a device_events trace
-
-
-def _runtime_launch(e):
-    """A host-side CUDA runtime or driver record of a kernel launch, a copy
-    or a memset: one device event each."""
-    from torch.autograd import DeviceType
-
-    return (e.device_type != DeviceType.CUDA
-            and any(k in e.name for k in ("Launch", "Memcpy", "Memset")))
-
-
-def device_events(fn, reps=10, per_call=None):
-    """The device events (kernels, copies, memsets) of ``reps`` calls of
-    fn() in one torch.profiler trace, in the order they started. On the
-    H100 machines this runs on, a trace drops its first device records
-    (nearly always one, now and then dozens) and at times one more: so a
-    trace opens with marker kernels (``torch.cuda._sleep``, synchronised,
-    then left out), and it is kept only when its device events number
-    what was launched: ``per_call`` a call where the caller knows it, else
-    the launches, copies and memsets that the host side of the same trace
-    recorded (where that side misses some, two traces with the same
-    count). Otherwise it is taken again with twice the markers, after a
-    pause, eight times at most, each retry counted in ``profiler_retries``."""
-    global profiler_retries
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    marks = PROFILER_MARKS
-    fullest = None           # where the host side recorded too few launches
-    for attempt in range(8):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(marks):
-                torch.cuda._sleep(100)
-            torch.cuda.synchronize()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = prof.events()
-        ev = [e for e in events if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)
-              and "spin_kernel" not in e.name]
-        launched = sum(1 for e in events if _runtime_launch(e)) - marks
-        if per_call is not None:
-            want = per_call * reps
-        elif len(ev) <= launched:
-            want = launched
-        else:                # no host record of some launch: two traces alike
-            want, fullest = fullest, max(fullest or 0, len(ev))
-        if ev and len(ev) == want:
-            return sorted(ev, key=lambda e: e.time_range.start)
-        profiler_retries += 1
-        marks *= 2
-        time.sleep(1.0)
-    raise RuntimeError(f"check failed: the profiler lost device events in 8 traces "
-                       f"({len(ev)} events for {want} launched by {reps} calls "
-                       f"in the last)")
 
 
 def device_time_ms(fn, reps=10, per_call=None):
@@ -515,18 +476,10 @@ def corr_bound(f1, levels, coords, radius=4):
     once; operations: one C-long multiply-add per in-level window pixel
     (the (2r+2)^2 a radius-r bilinear window touches), at the peak rate of
     the inputs' type. Returns (bound ms, what bounds it, bytes, ops)."""
-    import torch
-
     b, h8, w8, c = f1.shape
-    n = h8 * w8
-    esz = f1.element_size()
-    nbytes = (f1.numel() * esz + sum(l.numel() * esz for l in levels)
-              + coords.numel() * 4 + len(levels) * b * (2 * radius + 1) ** 2 * n * 4)
-    ops = window_taps([l.shape[1:3] for l in levels],
-                      coords.reshape(b, n, 2), radius) * c * 2
-    peak = BF16_FLOPS if f1.dtype == torch.bfloat16 else F32_FLOPS
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / peak
-    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations", nbytes, ops
+    ops, nbytes, dt = costs.corr_window(f1.reshape(b, h8 * w8, c), levels,
+                                        coords, radius)
+    return (*costs.bound(nbytes, {dt: ops}), nbytes, ops)
 
 
 K1_CASES = (("noisy", 2 * T_WINDOW, "noisy"), ("smooth", 2 * T_WINDOW, "smooth"),
@@ -663,23 +616,20 @@ def kernel_instance_norm(dev, widths=(64, 96, 128)):
         lib_ms = cuda_time_ms(lambda: (torch.sum(x, (1, 2), dtype=torch.float32),
                                        torch.sum(x * x, (1, 2),
                                                  dtype=torch.float32)))
-        nbytes = x.numel() * 2 + 2 * b * c * 4
-        ops = 3 * x.numel()          # add, multiply-add per element (f32)
+        ops, nbytes, _ = costs.instance_norm_stats(x)
         per.append({"shape": [b, h, w, c], **t, "plain_ms": plain_ms,
                     "library_ms": lib_ms, "rel_err": err})
         for k, v in (*t.items(), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                      ("bytes", nbytes), ("ops", ops)):
             tot[k] += 5 * v
-    bound = max(tot["bytes"] / HBM_BYTES_PER_S, tot["ops"] / F32_FLOPS) * 1e3
+    bound, by = costs.bound(tot["bytes"], {"f32": tot["ops"]})
     return {"name": "instance_norm_stats" + ("" if widths[0] == 64 else "_small"),
             "route": "triton",
             "source": "robust_pose_tpu_torch/ops/instance_norm.py",
             "replaces": "robust_pose_tpu/ops/pallas_instance_norm.py:27",
             "max_abs_err": err_all, "tol": "rel 1e-5",
             **{k: tot[k] for k in ("ms", "device_ms", "host_us", "device_launches")},
-            "plain_ms": tot["plain_ms"], "bound_ms": bound,
-            "bound_by": "bytes" if tot["bytes"] / HBM_BYTES_PER_S
-            >= tot["ops"] / F32_FLOPS else "operations",
+            "plain_ms": tot["plain_ms"], "bound_ms": bound, "bound_by": by,
             "library_ms": tot["library_ms"],
             "unit": "one fnet pass: 15 norms (15 launches)",
             "bytes": tot["bytes"], "ops": tot["ops"], "per_shape": per}
@@ -763,11 +713,8 @@ def kernel_normal_eq(dev):
     K3.launches = saved
     plain_ms = cuda_time_ms(
         lambda: K3.normal_equations_plain(pose, planes, kvec, lw, H, W), reps=5)
-    # bytes: the 10 planes the math reads (pcl1, pcl2, flow, 2 weights) and
-    # pose/K/loss weights, read once; H, g, cost written once
-    nbytes = b * 10 * H * W * 4 + b * (7 + 4 + 2) * 4 + b * 43 * 4
-    ops = b * H * W * 260          # f32 operations per pixel (see normal_eq.cu)
-    bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
+    ops, nbytes, _ = costs.normal_equations(b, H, W)
+    bound, by = costs.bound(nbytes, {"f32": ops})
     return {"name": "normal_eq", "route": "cuda",
             "source": "robust_pose_tpu_torch/csrc/normal_eq.cu",
             "replaces": "robust_pose_tpu/ops/pallas_normal_eq.py:61",
@@ -775,9 +722,7 @@ def kernel_normal_eq(dev):
             "rel_err": {"kernel_vs_f64": err_k64, "plain_vs_f64": err_p64,
                         "kernel_vs_plain": err_kp},
             "tol": {"kernel_vs_f64": 1e-4, "kernel_vs_plain": tol_kp},
-            **t, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOPS
-            else "operations",
+            **t, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None, "unit": "one H/g/cost build (2 kernels); "
             "launches on the path: LM solves (lm_solve, every build inside)",
             "bytes": nbytes, "ops": ops}
@@ -854,11 +799,8 @@ def solve_case(dev, name, planes, kvec, lw, cfg):
     run = lambda: K3.lm_solve(planes, kvec, lw, H, W, cfg)
     t = measure(run, reps=10, warmup=2)
     builds = int((1 + niter).sum())
-    # bytes: the 10 planes each build reads (the first and one an
-    # iteration of each sample until it is done), read once a build
-    nbytes = builds * 10 * H * W * 4
-    ops = builds * H * W * 260
-    bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
+    ops, nbytes, _ = costs.lm_solve(niter, H, W)
+    bound, by = costs.bound(nbytes, {"f32": ops})
     res.update(t)
     ident = torch.zeros((b, 7), device=dev)
     ident[:, 6] = 1.0
@@ -870,12 +812,10 @@ def solve_case(dev, name, planes, kvec, lw, cfg):
         # round is barriers and the per-sample update
         "build_device_ms": build_ms,
         "ms_per_iteration": t["device_ms"] / (1 + int(niter.max())),
-        "bound_ms": bound, "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-        >= ops / F32_FLOPS else "operations",
+        "bound_ms": bound, "bound_by": by,
         # the planes read from device memory once, every later build from
         # on-chip memory (possible at B = 1: 13.1 MB)
-        "bound_ms_planes_once": max(b * 10 * H * W * 4 / HBM_BYTES_PER_S,
-                                    ops / F32_FLOPS) * 1e3,
+        "bound_ms_planes_once": costs.bound(b * 10 * H * W * 4, {"f32": ops})[0],
         "k3_loop_ms": cuda_time_ms(lambda: loop(K3.solve6), reps=3, warmup=1),
         "k3_loop_device_ms_launches": device_time_ms(lambda: loop(K3.solve6),
                                                      reps=2)})
@@ -984,23 +924,6 @@ def lanewise_small_inputs(dev, b, h8, w8, levels, dtype, seed=8, radius=4):
     grads = [torch.randn(b, (2 * radius + 1) ** 2, h8 * w8, generator=g,
                          device=dev) for _ in pyramid]
     return pyramid, coords.contiguous(), grads
-
-
-def window_taps(level_shapes, coords, radius=4):
-    """In-level taps of the (2r+2)^2 (100 at radius 4, 64 at 3) each window
-    touches, summed over queries and levels ((Hl, Wl) each): what this
-    run's data needs read."""
-    import torch
-
-    n = 0
-    for lvl, (hl, wl) in enumerate(level_shapes):
-        x0 = torch.floor(coords[..., 0] / 2 ** lvl) - radius
-        y0 = torch.floor(coords[..., 1] / 2 ** lvl) - radius
-        dd = torch.arange(2 * radius + 2, device=coords.device)
-        ny = ((y0[..., None] + dd >= 0) & (y0[..., None] + dd < hl)).sum(-1)
-        nx = ((x0[..., None] + dd >= 0) & (x0[..., None] + dd < wl)).sum(-1)
-        n += int((ny * nx).sum())
-    return n
 
 
 def grid_sample_yardstick(vols, coords, radius=4):
@@ -1200,22 +1123,14 @@ def kernel_lanewise(dev, radius=4):
         fill = torch.empty(vol_bytes // 2, dtype=torch.bfloat16, device=dev)
         zero_fill_ms, _ = device_time_ms(fill.zero_)
         del fill
-        # K4 bytes: the in-level taps (bf16), the centres, the f32 outputs;
-        # operations: 3 per tap row entry and 3 per output (f32)
-        bytes4 = taps * 2 + coords.numel() * 4 + len(pyramid) * b * d * d * n * 4
-        ops4 = len(pyramid) * b * n * (d * (d + 1) * 3 + d * d * 3)
-        # K5 bytes: the dense dcorr write (bf16), the taps, the centres, the
-        # output cotangents and the centre cotangents (f32)
-        bytes5 = (vol_bytes + taps * 2 + coords.numel() * 4
-                  + len(pyramid) * b * d * d * n * 4 + len(pyramid) * b * n * 2 * 4)
-        ops5 = len(pyramid) * b * n * ((d + 1) ** 2 * 3 + d * (d + 1) * 8)
+        ops4, bytes4, _ = costs.lanewise_fwd(pyramid, coords, radius)
+        ops5, bytes5, _ = costs.lanewise_bwd(pyramid, coords, radius)
         rows = []
         for t, plain, lib_ms, lib_dev, levels, nbytes, ops in (
                 (t4, plain4, lib4, lib4_device, levels4, bytes4, ops4),
                 (t5, plain5, lib5, lib5_device, levels5, bytes5, ops5)):
-            t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
-            rows.append({**t, "plain_ms": plain, "bound_ms": max(t_b, t_o) * 1e3,
-                         "bound_by": "bytes" if t_b >= t_o else "operations",
+            bound, by = costs.bound(nbytes, {"f32": ops})
+            rows.append({**t, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
                          "library_ms": lib_ms, "library_device_ms": lib_dev,
                          "level_device_ms": levels, "bytes": nbytes, "ops": ops,
                          "taps_in_level": taps, "centres": centres})
@@ -1380,11 +1295,10 @@ def kernel_pixel(dev):
         lib_device_ms, _ = device_time_ms(lib)
         del vols, grids, lib
         taps = window_taps([v.shape[2:] for v in pyramid], coords.reshape(b, n, 2))
-        # bytes: the in-level taps (bf16), the centres, the f32 outputs;
-        # operations: 3 per tap row entry and 3 per output (f32)
-        nbytes = taps * 2 + coords.numel() * 4 + len(pyramid) * b * 81 * n * 4
-        ops = len(pyramid) * b * n * (9 * 10 * 3 + 81 * 3)
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+        ops, nbytes, _ = costs.pixel_lookup(
+            [v.reshape(b * n, *v.shape[2:]) for v in pyramid],
+            coords.reshape(b * n, 2))
+        bound, by = costs.bound(nbytes, {"f32": ops})
         vol0 = pyramid[0].reshape(b * n, *pyramid[0].shape[2:])
         c0 = coords.reshape(b * n, 2)
         for name, (pyr_fn, lvl_fn) in fns.items():
@@ -1396,8 +1310,7 @@ def kernel_pixel(dev):
                 "library_device_ms": lib_device_ms,
                 # level 0 alone in the level functions' (M, 81) layout
                 "level0_m81_device_ms": device_time_ms(lambda: lvl_fn(vol0, c0))[0],
-                "bound_ms": max(t_b, t_o) * 1e3,
-                "bound_by": "bytes" if t_b >= t_o else "operations",
+                "bound_ms": bound, "bound_by": by,
                 "bytes": nbytes, "ops": ops, "taps_in_level": taps})
         del pyramid, coords, vol0, c0
         torch.cuda.empty_cache()
@@ -1432,7 +1345,7 @@ def phase_kernels(dev):
            kernel_instance_norm(dev, (32, 64, 96)), *kernel_lanewise(dev, 3)]
     torch.cuda.synchronize()
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
-          "profiler_retries": profiler_retries, "kernels": out})
+          "profiler_retries": profiling.profiler_retries, "kernels": out})
     return out
 
 
@@ -1653,102 +1566,6 @@ def phase_main(dev, smi, small=False):
 # phase 5
 # ---------------------------------------------------------------------------
 
-KERNEL_GROUPS = (            # (group, substrings of the device kernel name)
-    ("corr_window_lookup (K1)", ("corr_window",)),
-    ("instance_norm_stats (K2)", ("_stats_partial", "_stats_finish")),
-    ("normal_eq (K3)", ("normal_eq",)),
-    ("lanewise_lookup (K4)", ("lanewise_fwd",)),
-    ("lanewise_lookup_bwd (K5)", ("lanewise_bwd",)),
-    ("pixel_lookup (K6)", ("pixel_lookup",)),
-    ("grouped_lookup (K7)", ("grouped_lookup",)),
-    ("memsets", ("Memset",)),
-    ("convolutions and products", ("conv", "cudnn", "xmma", "gemm", "sm90_",
-                                   "cutlass", "implicit")),
-    ("elementwise, reductions, copies", ("elementwise", "vectorized",
-                                         "unrolled", "reduce", "Reduce",
-                                         "index", "gather", "scatter", "cat",
-                                         "copy", "Copy", "fill", "Fill")),
-)
-
-
-def _kernel_group(name):
-    return next((g for g, keys in KERNEL_GROUPS
-                 if any(k in name for k in keys)), "other")
-
-
-def _top(ms_by_name, n):
-    return [[k[:96], v] for k, v in
-            sorted(ms_by_name.items(), key=lambda kv: -kv[1])[:n]]
-
-
-def profile_run(run, span_prefix):
-    """``run()`` under torch.profiler: the share of its wall time in which
-    the card ran no kernel, and the kernel time by group, by name and by
-    stage. A stage is a record_function span named ``span_prefix*``; the
-    work runs on one stream in order, so a stage's device window reaches
-    from the start of its span on the device timeline to the start of the
-    next span, and every kernel that starts in it (hand-written ones and
-    those of the autograd thread included) counts for the stage; a stage's
-    host ms are its spans' own on the host clock. If the profiler saw no
-    kernel, only the wall time, with the device time marked "not
-    measured"."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    is_span = lambda e: (getattr(e, "is_user_annotation", False)
-                         or e.name.startswith(span_prefix))
-    kernels = [e for e in device if not is_span(e)]
-    if not kernels:
-        return {"wall_ms": wall_ms,
-                "device_time": "not measured: the profiler saw no kernel"}
-    busy_us, end = 0.0, -float("inf")
-    for s, e in sorted((k.time_range.start, k.time_range.end)
-                       for k in kernels):     # union of kernel intervals
-        if e > end:
-            busy_us += e - max(s, end)
-            end = e
-    by_name, groups = {}, {}
-    for k in kernels:
-        ms = k.time_range.elapsed_us() / 1e3
-        by_name[k.name] = by_name.get(k.name, 0.0) + ms
-        g = _kernel_group(k.name)
-        groups[g] = groups.get(g, 0.0) + ms
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in device if is_span(e) and e.name.startswith(span_prefix))
-    stages = {}
-    for i, (s0, e0, name) in enumerate(spans):
-        s1 = spans[i + 1][0] if i + 1 < len(spans) else e0
-        st = stages.setdefault(name, {"device_ms": 0.0, "kernel_ms": 0.0,
-                                      "host_ms": 0.0, "launches": 0,
-                                      "in_span_launches": 0, "names": {}})
-        st["device_ms"] += (s1 - s0) / 1e3
-        for k in kernels:
-            if s0 <= k.time_range.start < s1:
-                ms = k.time_range.elapsed_us() / 1e3
-                st["kernel_ms"] += ms
-                st["launches"] += 1
-                st["in_span_launches"] += k.time_range.start <= e0
-                st["names"][k.name] = st["names"].get(k.name, 0.0) + ms
-    for e in prof.events():
-        if e.device_type == DeviceType.CPU and e.name in stages:
-            stages[e.name]["host_ms"] += e.time_range.elapsed_us() / 1e3
-    for st in stages.values():
-        st["top"] = _top(st.pop("names"), 4)
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
-            "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
-            "kernel_launches": len(kernels), "stages": stages,
-            "group_ms": groups, "top_kernels_ms": _top(by_name, 12)}
-
-
 def k1_in_window(prof, earlier=None):
     """K1's device ms in a profiled window or step (its kernel group),
     beside the figure on record before its redesign where there is one."""
@@ -1860,6 +1677,20 @@ def zero_launch_counts():
     L.launches = L.bwd_launches = 0
     KP.launches = KP.grouped_launches = 0
     SOLVE_CALLS[0] = 0
+
+
+def restore_launch_counts(lc):
+    """Set the launch counters to ``lc`` (a ``launch_counts()``)."""
+    from robust_pose_tpu_torch.ops import corr_lanewise as L
+    from robust_pose_tpu_torch.ops import corr_onthefly as K1
+    from robust_pose_tpu_torch.ops import corr_pixel as KP
+    from robust_pose_tpu_torch.ops import instance_norm as K2
+    from robust_pose_tpu_torch.ops import normal_eq as K3
+
+    K1.launches, K2.launches = lc["corr_window_lookup"], lc["instance_norm_stats"]
+    K3.launches, K3.solve_launches = lc["normal_eq"], lc["lm_solve"]
+    L.launches, L.bwd_launches = lc["lanewise_lookup"], lc["lanewise_lookup_bwd"]
+    KP.launches, KP.grouped_launches = lc["pixel_lookup"], lc["grouped_lookup"]
 
 
 def replay_dropout(record):
@@ -2879,6 +2710,250 @@ def phase_f2m(dev, smi):
               "device_ms": [321.1, 461.8], "kernel_ms": [18.3, 18.6],
               "launches": 12884})})
     return launches, g_launches
+
+
+# ---------------------------------------------------------------------------
+# phases parity, roofline and tools
+# ---------------------------------------------------------------------------
+
+PARITY_FRAMES = 5             # the JAX harness's defaults: 5 frames,
+PARITY_ITERS = 4              # 4 GRU iterations, 384x512
+
+
+def captured(fn, *args):
+    """``fn(*args)`` with its stdout captured (the port's tools print
+    tables); returns (result, what it printed)."""
+    import contextlib
+    import io
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        res = fn(*args)
+    return res, printed.getvalue()
+
+
+def phase_parity(dev, smi):
+    """The port's golden-parity harness (robust_pose_tpu_torch.scripts.
+    verify_parity) against the reference network: ``--selftest`` at
+    384x512, 5 frames, 4 GRU iterations, the port on the card (f32, K1,
+    K2 and K3's LM solve, each launched at least once a frame), the
+    reference network on the CPU, recording its outputs (``--record``);
+    every row must PASS. Then ``--golden`` on that recording from a second
+    process: the same rows (the objective row, which needs the live
+    reference network, aside), bit for bit in value."""
+    import os
+    import tempfile
+
+    from robust_pose_tpu_torch.scripts import verify_parity as vp
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp()
+    golden = os.path.join(root, "golden.npz")
+    args = vp.build_parser().parse_args(
+        ["--selftest", "--frames", str(PARITY_FRAMES), "--iters",
+         str(PARITY_ITERS), "--record", golden])
+    zero_launch_counts()
+    (rows, ok), printed = captured(vp.run, args)
+    launches = launch_counts()
+    print(printed, end="", flush=True)
+    require(ok and all(r[3] for r in rows), f"parity: rows {rows}")
+    tracked = PARITY_FRAMES - 1
+    require(launches["corr_window_lookup"] >= PARITY_FRAMES
+            and launches["instance_norm_stats"] >= PARITY_FRAMES
+            and launches["lm_solve"] >= tracked,
+            f"parity: the port's kernels did not run each frame: {launches}")
+    out_json = os.path.join(root, "golden_rows.json")
+    res = subprocess.run(
+        [sys.executable, "-m", "robust_pose_tpu_torch.scripts.verify_parity",
+         "--posenet", args.posenet, "--golden", golden, "--frames",
+         str(PARITY_FRAMES), "--iters", str(PARITY_ITERS), "--json", out_json],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    print(res.stdout, end="", flush=True)
+    require(res.returncode == 0, f"parity --golden: exit {res.returncode}: "
+            f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+    with open(out_json) as f:
+        golden_rows = json.load(f)["rows"]
+    first = {n: v for n, v, _, _ in rows}
+    same = {n: first.get(n) == v for n, v, _, _ in golden_rows}
+    left_out = sorted(set(first) - {n for n, *_ in golden_rows})
+    require(all(same.values()) and left_out == ["GN obj excess over LBFGS (rel)"],
+            f"parity: --golden rows differ from the live run's: {same}, "
+            f"left out {left_out}")
+    emit({"phase": "parity", "card": smi, "shape": [384, 512],
+          "frames": PARITY_FRAMES, "iters": PARITY_ITERS,
+          "rows": [{"name": n, "value": v, "tol": t, "pass": bool(p)}
+                   for n, v, t, p in rows],
+          "golden_rows": [{"name": n, "value": v, "tol": t, "pass": p}
+                          for n, v, t, p in golden_rows],
+          "golden_bit_equal": same,
+          "launches": {k: v for k, v in launches.items() if v},
+          "seconds": time.perf_counter() - t0})
+
+
+def registered(fn):
+    """What ``fn()`` adds to a counter: {op: (flops, bytes)}; the launch
+    counters left as they were."""
+    saved = launch_counts()
+    with costs.count() as c:
+        fn()
+    restore_launch_counts(saved)
+    return {k: (v[0], v[1]) for k, v in c.by_op.items()}
+
+
+def kernel_costs(dev):
+    """Each kernel wrapper's registered FLOPs and bytes at phase kernels'
+    shapes (K1: an f2f window's B = 16, noisy, bf16; K2: the three fnet
+    shapes at B = 16; K3: one build and the B = 8, 20-iteration solve;
+    K4/K5: the training step's noisy inputs; K6/K7: the f2m step's B = 1)
+    against the numbers its bound is computed from there."""
+    import torch
+
+    from robust_pose_tpu_torch.ops import corr_pixel as KP
+    from robust_pose_tpu_torch.ops import instance_norm as K2
+    from robust_pose_tpu_torch.ops import normal_eq as K3
+    from robust_pose_tpu_torch.solver.gauss_newton import SolverConfig
+
+    out = {}
+
+    def check(name, got, ops, nbytes):
+        out[name] = {"registered": list(got.get(name, ())),
+                     "bound_from": [ops, nbytes]}
+        require(got.get(name) == (ops, nbytes),
+                f"costs {name}: registered {got} against {(ops, nbytes)}")
+
+    f1, levels, coords = corr_inputs(dev, 2 * T_WINDOW, "noisy", torch.bfloat16)
+    kernel = corr_entries(f1, levels, coords)[0]
+    _, _, nbytes, ops = corr_bound(f1, levels, coords)
+    check("corr_window_lookup", registered(kernel), ops, nbytes)
+    del f1, levels, coords, kernel
+    g = torch.Generator(device=dev).manual_seed(2)
+    for h, w, c in ((H // 2, W // 2, 64), (H // 4, W // 4, 96), (H // 8, W // 8, 128)):
+        x = torch.randn(2 * T_WINDOW, h, w, c, generator=g, device=dev).bfloat16()
+        ops, nbytes, _ = costs.instance_norm_stats(x)
+        got = registered(lambda: K2.instance_norm_stats(x))
+        out.setdefault("instance_norm_stats", []).append(
+            {"shape": list(x.shape), "registered": list(got["instance_norm_stats"])})
+        require(got["instance_norm_stats"] == (ops, nbytes),
+                f"costs instance_norm_stats {tuple(x.shape)}: {got}")
+    planes, kvec, lw, g = solver_inputs(dev, T_WINDOW)
+    from robust_pose_tpu_torch import se3
+    pose = se3.exp(0.01 * torch.randn(T_WINDOW, 6, generator=g, device=dev))
+    ops, nbytes, _ = costs.normal_equations(T_WINDOW, H, W)
+    check("normal_eq", registered(
+        lambda: K3.normal_equations(pose, planes, kvec, lw, H, W)), ops, nbytes)
+    cfg = SolverConfig(iters=20)
+    niter = K3.lm_solve(planes, kvec, lw, H, W, cfg)[1]
+    ops, nbytes, _ = costs.lm_solve(niter, H, W)
+    check("lm_solve", registered(lambda: K3.lm_solve(planes, kvec, lw, H, W, cfg)),
+          ops, nbytes)
+    out["lm_solve"]["builds"] = int((1 + niter).sum())
+    del planes, kvec, lw
+    pyramid, coords, grads = lanewise_inputs(dev, "noisy")
+    fwd, _, bwd, _ = lanewise_entries(pyramid, coords, grads)
+    ops, nbytes, _ = costs.lanewise_fwd(pyramid, coords)
+    check("lanewise_lookup", registered(fwd), ops, nbytes)
+    ops, nbytes, _ = costs.lanewise_bwd(pyramid, coords)
+    check("lanewise_lookup_bwd", registered(bwd), ops, nbytes)
+    del pyramid, coords, grads, fwd, bwd
+    pyramid, coords = pixel_inputs(dev, 1, H // 8, W // 8, torch.bfloat16)
+    n = pyramid[0].shape[1]
+    ops, nbytes, _ = costs.pixel_lookup(
+        [v.reshape(n, *v.shape[2:]) for v in pyramid], coords.reshape(n, 2))
+    check("pixel_lookup", registered(lambda: KP.pixel_lookup_pyramid(pyramid, coords)),
+          ops, nbytes)
+    check("grouped_lookup", registered(
+        lambda: KP.grouped_lookup_pyramid(pyramid, coords)), ops, nbytes)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_roofline(dev, smi):
+    """The port's roofline (robust_pose_tpu_torch.scripts.roofline) on the
+    card: f2f (window 8), f2m (window 4, 100 LM iterations) and training
+    step (batch 8, remat, RAFT live through K4/K5; per sample) rows, each
+    from one counted and one timed run; MFU at most 100 %. A second
+    counted run of each path counts the same FLOPs; its per-op and
+    per-span rows sum to its totals. Then each kernel wrapper's
+    registered work at phase kernels' shapes against the numbers its
+    bound is computed from (kernel_costs)."""
+    from robust_pose_tpu_torch.scripts import roofline
+
+    t0 = time.perf_counter()
+    rows, printed = captured(roofline.main, ["--windows", "4", "--by-op", "12",
+                                             "--train"])
+    print(printed, end="", flush=True)
+    require([r["path"] for r in rows] == ["f2f_window", "f2m_window_iters100",
+                                          f"train_step_batch{roofline.TRAIN_BATCH}"],
+            f"roofline: rows {rows}")
+    require(all(0.0 < r["mfu_pct"] <= 100.0 and np.isfinite(r["hbm_util_pct"])
+                and r["device"] is not None for r in rows), f"roofline: {rows}")
+    again = {}
+    for r, (path, window) in zip(rows, (("f2f", T_WINDOW), ("f2m", roofline.F2M_WINDOW))):
+        c = roofline.count_window(path, dev, window)
+        again[path] = {"flops": c.flops, "bytes": c.bytes,
+                       "flops_equal": c.flops == r["flops"],
+                       "bytes_equal": c.bytes == r["bytes"]}
+        require(c.flops == r["flops"], f"roofline {path}: a second counted run "
+                f"counts {c.flops} FLOPs against {r['flops']}")
+        for rows_of in (c.by_op, c.by_span, c.by_dtype):
+            require(sum(v[0] for v in rows_of.values()) == c.flops
+                    and sum(v[1] for v in rows_of.values()) == c.bytes,
+                    f"roofline {path}: rows do not sum to the totals")
+        del c
+    emit({"phase": "roofline", "card": smi, "rows": rows, "second_count": again,
+          "kernel_costs": kernel_costs(dev), "seconds": time.perf_counter() - t0})
+
+
+def phase_tools(dev, smi):
+    """The port's profile tools and the exact_render A/B on the card:
+    profile_trace on f2f (2 windows of 8: its kernel groups' ms sum to the
+    busy ms within 1 %), profile_stages (2 windows), profile_f2m (1 window
+    of 8, a 4-frame pool), profile_encoder at B = 1 and 16, and
+    ab_exact_render at full width over 4 f2m frames (two windows of 2)."""
+    from robust_pose_tpu_torch.scripts import (
+        ab_exact_render,
+        profile_encoder,
+        profile_f2m,
+        profile_stages,
+        profile_trace,
+    )
+
+    t0 = time.perf_counter()
+    seconds = {}
+    trace, _ = captured(profile_trace.main, ["--path", "f2f", "--windows", "2",
+                                         "--top", "15"])
+    seconds["profile_trace"] = time.perf_counter() - t0
+    require(abs(trace["group_ms_sum_over_busy"] - 1.0) <= 0.01,
+            f"profile_trace: group ms / busy ms {trace['group_ms_sum_over_busy']}")
+    stages, _ = captured(profile_stages.main, ["--iters", "2"])
+    require(set(stages["stages_per_frame"]) == {
+        f"infer_window.{s}" for s in profile_stages.STAGES},
+        f"profile_stages: {sorted(stages['stages_per_frame'])}")
+    seconds["profile_stages"] = time.perf_counter() - t0 - sum(seconds.values())
+    f2m, _ = captured(profile_f2m.main, ["--iters", "1", "--frames", "4"])
+    require({"f2m_precompute", "f2m_track.solve", "fuse_render"}
+            <= set(f2m["stages_per_frame"]),
+            f"profile_f2m: {sorted(f2m['stages_per_frame'])}")
+    seconds["profile_f2m"] = time.perf_counter() - t0 - sum(seconds.values())
+    enc, _ = captured(profile_encoder.main, ["--batches", "1", "16", "--iters", "5"])
+    require(all(np.isfinite(r["device_ms"]) and r["device_ms"] > 0
+                for r in enc["rows"]), f"profile_encoder: {enc}")
+    k2 = [r for r in enc["rows"] if r["variant"] == "instance_k2"]
+    require(all(r["k2_device_ms"] > 0 for r in k2)
+            and all(r["k2_device_ms"] == 0 for r in enc["rows"]
+                    if r["variant"] != "instance_k2"),
+            f"profile_encoder: K2 ran where it should not, or not where it should")
+    seconds["profile_encoder"] = time.perf_counter() - t0 - sum(seconds.values())
+    (ab, vec_on, vec_off), _ = captured(ab_exact_render.main, ["--windows", "2",
+                                                               "--window", "2"])
+    require(ab["frames"] == 4 and np.isfinite(vec_on).all()
+            and np.isfinite(vec_off).all() and ab["fps_exact_on"] > 0
+            and ab["fps_exact_off"] > 0, f"ab_exact_render: {ab}")
+    seconds["ab_exact_render"] = time.perf_counter() - t0 - sum(seconds.values())
+    emit({"phase": "tools", "card": smi, "profile_trace": trace,
+          "profile_stages": stages, "profile_f2m": f2m, "profile_encoder": enc,
+          "ab_exact_render": ab, "seconds": seconds})
 
 
 # ---------------------------------------------------------------------------
@@ -4502,6 +4577,13 @@ def main():
         phase_train(dev, smi)
         phase_ddp(dev, smi)
         return 0
+    if sys.argv[1:] == ["tools"]:
+        # the parity harness, the roofline and the profile tools; no
+        # result line
+        phase_parity(dev, smi)
+        phase_roofline(dev, smi)
+        phase_tools(dev, smi)
+        return 0
     kernels = phase_kernels(dev)
     phase_slice(dev)
     launches = phase_main(dev, smi)
@@ -4517,6 +4599,9 @@ def main():
     phase_ops_tail(dev)
     phase_train_cli(dev, smi)
     phase_ddp(dev, smi)
+    phase_parity(dev, smi)
+    phase_roofline(dev, smi)
+    phase_tools(dev, smi)
     phase_bench(dev, smi)
     # each kernel's launches on its own path: K1-K3 in the f2f main path
     # (K3: the LM solve kernel, one launch a window, every build inside),

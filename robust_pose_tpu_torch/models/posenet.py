@@ -15,7 +15,6 @@ from typing import Any, NamedTuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from robust_pose_tpu_torch.device import resolve_device
 from robust_pose_tpu_torch.models.layers import BatchNorm
@@ -34,6 +33,7 @@ from robust_pose_tpu_torch.solver.gauss_newton import (
     solve_pose,
 )
 from robust_pose_tpu_torch.solver.objectives import PoseProblemInputs
+from robust_pose_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -214,15 +214,15 @@ class PoseNet(nn.Module):
             last frame's cache
         """
         t = limgs.shape[0]
-        # the profiler spans name the window's four stages (read by
-        # chip_smoke.py's profile phase); outside a profiler they cost a
-        # few microseconds each
-        with record_function("infer_window.encode"):
+        # the spans name the window's four stages (read by the profile
+        # tools, chip_smoke.py and utils.costs); outside a profiler and a
+        # counter they cost a few microseconds each
+        with span("infer_window.encode"):
             enc = self.flow.encode_fnet(torch.cat([limgs, rimgs]))
             fl, fr = enc[:t], enc[t:]
             net_u, inp_u = self.flow.encode_cnet(limgs)
         pf, pnet, pinp = feats
-        with record_function("infer_window.flow"):
+        with span("infer_window.flow"):
             flows, hidden, context = self.flow.flow_from_features(
                 torch.cat([pf, fl[:-1], fl]), torch.cat([fl, fr]),
                 torch.cat([pnet, net_u[:-1], net_u]),
@@ -230,7 +230,7 @@ class PoseNet(nn.Module):
         time_flow, stereo_flow2 = flows[:t], flows[t:]
         hidden, context = hidden[:t], context[:t]
 
-        with record_function("infer_window.weights"):
+        with span("infer_window.weights"):
             depth2, valid2 = self.disparity_to_depth(stereo_flow2,
                                                      baseline.expand(t))
             mask2 = masks & valid2
@@ -243,7 +243,7 @@ class PoseNet(nn.Module):
             conf1, conf2, pcl2_w, mask2_w = self.get_weight_maps(
                 pcl1, depth2, K, image1l, limgs, mask2, time_flow,
                 stereo_flow1, stereo_flow2, hidden, context)
-        with record_function("infer_window.solve"):
+        with span("infer_window.solve"):
             pose, pose_tan, niter = self._solve(
                 time_flow, pcl1, pcl2_w, conf1, conf2, mask1, mask2_w, K)
         return PoseNetOutputs(pose, pose_tan, depth1, depth2, conf1, conf2,
@@ -263,7 +263,7 @@ class PoseNet(nn.Module):
             with leading dim T; depth2 normalized, mask2 = masks & valid
         """
         t = limgs.shape[0]
-        with record_function("f2m_precompute"):
+        with span("f2m_precompute"):
             enc = self.flow.encode_fnet(torch.cat([limgs, rimgs]))
             fl, fr = enc[:t], enc[t:]
             net_u, inp_u = self.flow.encode_cnet(limgs)
@@ -284,18 +284,18 @@ class PoseNet(nn.Module):
         :param mask2, fmap_l, ...: this frame's slice of
             :meth:`f2m_precompute` (leading dim 1)
         """
-        with record_function("f2m_track.encode"):
+        with span("f2m_track.encode"):
             f1 = self.flow.encode_fnet(ref_img)
             net1, inp1 = self.flow.encode_cnet(ref_img)
-        with record_function("f2m_track.flow"):
+        with span("f2m_track.flow"):
             time_flow, hidden, context = self.flow.flow_from_features(
                 f1, fmap_l, net1, inp1)
-        with record_function("f2m_track.weights"):
+        with span("f2m_track.weights"):
             pcl1 = depth_to_pcl(ref_depth1, intrinsics, self.img_coords)
             conf1, conf2, pcl2_w, mask2_w = self.get_weight_maps(
                 pcl1, depth2, intrinsics, ref_img, limg, mask2, time_flow,
                 ref_sflow1, stereo_flow2, hidden, context)
-        with record_function("f2m_track.solve"):
+        with span("f2m_track.solve"):
             pose, pose_tan, niter = self._solve(
                 time_flow, pcl1, pcl2_w, conf1, conf2, ref_mask, mask2_w,
                 intrinsics)

@@ -42,6 +42,7 @@ import torch
 
 from robust_pose_tpu_torch.device import plain_or_cuda
 from robust_pose_tpu_torch.ops import _build
+from robust_pose_tpu_torch.utils import costs
 
 Tensor = torch.Tensor
 
@@ -258,9 +259,14 @@ def lanewise_fwd_pyramid(pyramid_t, coords: Tensor, radius: int = RADIUS,
     b, _, _, n = vols[0].shape
     out = torch.empty((b, len(vols) * dd, n), dtype=torch.float32,
                       device=coords.device)
+    if costs.active:
+        costs.kernel("lanewise_lookup", costs.lanewise_fwd, vols, coords,
+                     radius, level_scale)
     if plain:
-        for lvl, (v, o) in enumerate(zip(vols, out.split(dd, dim=1))):
-            o.copy_(lanewise_fwd_plain(v, coords, radius, level_scale * 2 ** lvl))
+        with costs.suspended():
+            for lvl, (v, o) in enumerate(zip(vols, out.split(dd, dim=1))):
+                o.copy_(lanewise_fwd_plain(v, coords, radius,
+                                           level_scale * 2 ** lvl))
         return out
     args = _kernel_args(vols, radius, level_scale)
     fn = _build.function("corr_lanewise", "lanewise_fwd", _FWD_ARGTYPES)
@@ -291,13 +297,17 @@ def lanewise_bwd_pyramid(pyramid_t, coords: Tensor, g: Tensor,
         raise ValueError(f"{what}: cotangent {tuple(g.shape)} {g.dtype} on "
                          f"{g.device}; expected contiguous float32 "
                          f"{(b, len(vols) * dd, n)}")
+    if costs.active:
+        costs.kernel("lanewise_lookup_bwd", costs.lanewise_bwd, vols, coords,
+                     radius, level_scale)
     if plain:
         dcorrs, dcoords = [], None
-        for lvl, (v, gl) in enumerate(zip(vols, g.split(dd, dim=1))):
-            dc, dx = lanewise_bwd_plain(v, coords, gl, radius,
-                                        level_scale * 2 ** lvl)
-            dcorrs.append(dc)
-            dcoords = dx if dcoords is None else dcoords + dx
+        with costs.suspended():
+            for lvl, (v, gl) in enumerate(zip(vols, g.split(dd, dim=1))):
+                dc, dx = lanewise_bwd_plain(v, coords, gl, radius,
+                                            level_scale * 2 ** lvl)
+                dcorrs.append(dc)
+                dcoords = dx if dcoords is None else dcoords + dx
         return dcorrs, dcoords
     args = _kernel_args(vols, radius, level_scale)
     dcorrs = [torch.empty_like(v) for v in vols]

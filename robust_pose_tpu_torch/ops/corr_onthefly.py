@@ -38,6 +38,7 @@ import torch
 
 from robust_pose_tpu_torch.device import plain_or_cuda
 from robust_pose_tpu_torch.ops import _build
+from robust_pose_tpu_torch.utils import costs
 
 Tensor = torch.Tensor
 
@@ -194,11 +195,15 @@ def pyramid_forward(f1: Tensor, levels, coords: Tensor, radius: int = RADIUS,
     out = torch.empty((b, len(levels) * d * d, n), dtype=torch.float32,
                       device=f1.device)
     if plain_or_cuda(f1, what):
-        for lvl, (v, o) in enumerate(zip(levels, out.split(d * d, dim=1))):
-            o.copy_(corr_lookup_level_plain(f1, v, coords, radius,
-                                            level_scale * 2 ** lvl))
+        with costs.suspended():
+            for lvl, (v, o) in enumerate(zip(levels, out.split(d * d, dim=1))):
+                o.copy_(corr_lookup_level_plain(f1, v, coords, radius,
+                                                level_scale * 2 ** lvl))
     else:
         _launch(f1, levels, coords, out, grid, radius, level_scale, what)
+    if costs.active:
+        costs.kernel("corr_window_lookup", costs.corr_window, f1, levels,
+                     coords, radius, level_scale)
     return out
 
 

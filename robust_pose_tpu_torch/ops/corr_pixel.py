@@ -43,6 +43,7 @@ import torch
 
 from robust_pose_tpu_torch.device import plain_or_cuda
 from robust_pose_tpu_torch.ops import _build
+from robust_pose_tpu_torch.utils import costs
 
 Tensor = torch.Tensor
 
@@ -149,8 +150,12 @@ def _level(corr: Tensor, coords: Tensor, grouped: bool) -> Tensor:
     if coords.shape != (m, 2):
         raise ValueError(f"{what}: coords {tuple(coords.shape)}; expected ({m}, 2)")
     _check([corr], (m,), coords, what)
+    if costs.active:
+        costs.kernel("grouped_lookup" if grouped else "pixel_lookup",
+                     costs.pixel_lookup, [corr], coords)
     if plain_or_cuda(corr, what):
-        return pixel_lookup_level_plain(corr, coords)
+        with costs.suspended():
+            return pixel_lookup_level_plain(corr, coords)
     out = torch.empty((m, D * D), dtype=torch.float32, device=corr.device)
     _launch([corr], coords, out, 1, m, (0, 0, 1, D * D), grouped)
     return out
@@ -192,12 +197,18 @@ def _pyramid(pyramid, coords: Tensor, grouped: bool):
     out = torch.empty((b, nl * D * D, n), dtype=torch.float32,
                       device=coords.device)
     outs = out.split(D * D, dim=1)
+    if costs.active:
+        costs.kernel("grouped_lookup" if grouped else "pixel_lookup",
+                     costs.pixel_lookup,
+                     [v.view(b * n, *v.shape[2:]) for v in pyramid],
+                     coords.view(b * n, 2))
     if plain_or_cuda(coords, what):
         c = coords.view(b * n, 2)
-        for lvl, (vol, o) in enumerate(zip(pyramid, outs)):
-            v = pixel_lookup_level_plain(vol.view(b * n, *vol.shape[2:]),
-                                         c / float(2 ** lvl))
-            o.copy_(v.view(b, n, D * D).transpose(1, 2))
+        with costs.suspended():
+            for lvl, (vol, o) in enumerate(zip(pyramid, outs)):
+                v = pixel_lookup_level_plain(vol.view(b * n, *vol.shape[2:]),
+                                             c / float(2 ** lvl))
+                o.copy_(v.view(b, n, D * D).transpose(1, 2))
     else:
         _launch(pyramid, coords, out, b, n,
                 (nl * D * D * n, D * D * n, n, 1), grouped)

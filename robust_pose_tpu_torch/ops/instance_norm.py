@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from robust_pose_tpu_torch.device import plain_or_cuda
+from robust_pose_tpu_torch.utils import costs
 
 Tensor = torch.Tensor
 
@@ -97,13 +98,25 @@ def instance_norm_stats_plain(x: Tensor):
 
 
 def _stats(x: Tensor):
-    """The kernel on CUDA tensors, the plain version on CPU tensors."""
-    global launches
+    """The kernel on CUDA tensors, the plain version on CPU tensors; its
+    work added to an active ``utils.costs`` counter."""
     b, h, w, c = x.shape
     if c > MAX_C:
         raise ValueError(f"instance_norm_stats: C = {c} > {MAX_C}")
     if plain_or_cuda(x, "instance_norm_stats"):
-        return instance_norm_stats_plain(x)
+        with costs.suspended():
+            out = instance_norm_stats_plain(x)
+    else:
+        out = _launch(x)
+    if costs.active:
+        costs.kernel("instance_norm_stats", costs.instance_norm_stats, x)
+    return out
+
+
+def _launch(x: Tensor):
+    """The two Triton kernels on a checked CUDA tensor; counts the launch."""
+    global launches
+    b, h, w, c = x.shape
     if not x.is_contiguous():
         raise ValueError("instance_norm_stats: the kernel takes a contiguous "
                          "NHWC tensor (the NHWC view of a channels_last one)")

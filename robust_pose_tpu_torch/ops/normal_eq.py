@@ -23,6 +23,7 @@ from robust_pose_tpu_torch import se3
 from robust_pose_tpu_torch.device import plain_or_cuda
 from robust_pose_tpu_torch.ops import _build
 from robust_pose_tpu_torch.ops.geometry import create_img_coords
+from robust_pose_tpu_torch.utils import costs
 
 Tensor = torch.Tensor
 
@@ -135,9 +136,12 @@ def normal_equations(pose: Tensor, planes: Tensor, kvec: Tensor,
     :return: H (B, 6, 6), g (B, 6), cost (B,)
     """
     global launches
-    if plain_or_cuda(planes, "normal_equations"):
-        return normal_equations_plain(pose, planes, kvec, loss_weight, h, w)
     b = pose.shape[0]
+    if costs.active:
+        costs.kernel("normal_eq", costs.normal_equations, b, h, w)
+    if plain_or_cuda(planes, "normal_equations"):
+        with costs.suspended():
+            return normal_equations_plain(pose, planes, kvec, loss_weight, h, w)
     _check_planes(planes, b, h, w, "normal_equations")
     pose = pose.float().contiguous()
     kvec = kvec.float().contiguous()
@@ -276,19 +280,35 @@ def lm_solve(planes: Tensor, kvec: Tensor, loss_weight: Tensor, h: int,
         (B, 7) and tau (B, 6) with ``finish``], realized iterations (B,)
         int32[, done (B,) bool, failed (B,) bool]
     """
-    global solve_launches
     b = planes.shape[0]
     _check_planes(planes, b, h, w, "lm_solve")
     if kvec.shape != (b, 4) or loss_weight.shape != (b, 2):
         raise ValueError(f"lm_solve: kvec {tuple(kvec.shape)} and loss_weight "
                          f"{tuple(loss_weight.shape)} must be (B, 4) and (B, 2)")
     if plain_or_cuda(planes, "lm_solve"):
-        pose, *rest = lm_solve_plain(planes, kvec, loss_weight, h, w, cfg,
-                                     flags=flags)
-        if finish:
-            pose = se3.normalize(pose)
-            return (pose, se3.log(pose), *rest)
-        return (pose, *rest)
+        with costs.suspended():
+            pose, *rest = lm_solve_plain(planes, kvec, loss_weight, h, w, cfg,
+                                         flags=flags)
+            out = (pose,)
+            if finish:
+                pose = se3.normalize(pose)
+                out = (pose, se3.log(pose))
+    else:
+        out, rest = _solve_launch(planes, kvec, loss_weight, h, w, cfg, finish,
+                                  flags)
+    if costs.active:
+        # the builds this solve ran: its realized counts, read back only
+        # while a counter is active
+        costs.kernel("lm_solve", costs.lm_solve, rest[0], h, w)
+    return (*out, *rest)
+
+
+def _solve_launch(planes: Tensor, kvec: Tensor, loss_weight: Tensor, h: int,
+                  w: int, cfg, finish: bool, flags: bool):
+    """One LM solve kernel launch on checked CUDA planes; counts it.
+    Returns ((pose[, tau]), (niter[, done, failed]))."""
+    global solve_launches
+    b = planes.shape[0]
     dev = planes.device
     kvec = kvec.float().contiguous()
     lw = loss_weight.float().contiguous()
@@ -307,9 +327,10 @@ def lm_solve(planes: Tensor, kvec: Tensor, loss_weight: Tensor, h: int,
                     float(cfg.tol_step), _build.stream_of(planes)), "lm_solve")
     solve_launches += 1
     out = (state[:, 64:71], state[:, 71:77]) if finish else (state[:, :7],)
-    if flags:
-        return (*out, niter, flag[:, 0].bool(), flag[:, 1].bool())
-    return (*out, niter)
+    if not flags:
+        return out, (niter,)
+    with costs.suspended():       # the plain version returns them as bool
+        return out, (niter, flag[:, 0].bool(), flag[:, 1].bool())
 
 
 def lm_update_device(H: Tensor, g: Tensor, lam: Tensor, pose: Tensor):

@@ -46,6 +46,28 @@ F2M_WINDOW = int(os.environ.get("BENCH_F2M_WINDOW", 8))
 # costs what its bucket holds, so window-length comparisons keep the pool
 F2M_POOL_FRAMES = int(os.environ.get("BENCH_F2M_POOL_FRAMES", 4))
 
+# frame-to-frame, configuration/infer_f2f.yaml
+F2F_SLAM = {
+    "frame2frame": True, "lbgfs_iters": 20, "conf_weighing": True,
+    "depth_clipping": [1, 250], "dist_thr": 0.05, "average_pts": False,
+}
+
+
+def f2m_slam(pool_frames=None):
+    """Frame-to-model, configuration/infer_scared.yaml (100 LM
+    iterations). The pool is pre-sized to its cap, ``pool_frames`` frames
+    (F2M_POOL_FRAMES): the synthetic sequence appends at every frame
+    (random-weight confidences defeat the depth-match test), so every pool
+    pass costs the full capacity."""
+    cap = (F2M_POOL_FRAMES if pool_frames is None else pool_frames) * H * W
+    return {
+        "frame2frame": False, "lbgfs_iters": 100, "conf_weighing": True,
+        "depth_clipping": [1, 250], "dist_thr": 0.05, "average_pts": False,
+        "map_capacity": cap, "initial_bucket": cap,
+        # the packed-winner primitive (slam/surfel_map.py), default segsort
+        "winner": os.environ.get("BENCH_F2M_WINNER", "segsort"),
+    }
+
 
 def make_sequence(n_frames, disparity=8, step=3, seed=0):
     """Shifted crops of one blurred random texture: a horizontally
@@ -71,7 +93,7 @@ def make_sequence(n_frames, disparity=8, step=3, seed=0):
 
 
 def build_estimator(slam_cfg, disparity=8, early_exit=True, state_dict=None,
-                    device=None):
+                    device=None, lookup=None):
     """A ``PoseEstimator`` for ``slam_cfg`` at (H, W) with MODEL's network.
     Weights: ``state_dict`` where given, else random from
     ``torch.Generator().manual_seed(0)``. Either way the flow head's last
@@ -79,7 +101,8 @@ def build_estimator(slam_cfg, disparity=8, early_exit=True, state_dict=None,
     sequence's constant disparity / 12: untrained RAFT's flow is near
     random, which would leave depth invalid, the f2m rendering half empty
     and the failure branch skipping every fuse. The compute is the same;
-    depth is valid everywhere and every production path stays engaged."""
+    depth is valid everywhere and every production path stays engaged.
+    ``lookup``: RAFT's lookup (default $BENCH_LOOKUP, else "auto")."""
     from robust_pose_tpu_torch.device import resolve_device
     from robust_pose_tpu_torch.models.posenet import PoseNet
     from robust_pose_tpu_torch.slam.pose_estimator import PoseEstimator
@@ -90,7 +113,7 @@ def build_estimator(slam_cfg, disparity=8, early_exit=True, state_dict=None,
                      # benchmark-floor switch: False runs every LM iteration
                      # to the cap (no data-dependent early exit)
                      solver_early_exit=early_exit,
-                     lookup=os.environ.get("BENCH_LOOKUP", "auto"))
+                     lookup=lookup or os.environ.get("BENCH_LOOKUP", "auto"))
     if state_dict is None:
         model = PoseNet(model_cfg, device="cpu")
         model.reset_parameters(torch.Generator().manual_seed(0))
@@ -107,6 +130,22 @@ def build_estimator(slam_cfg, disparity=8, early_exit=True, state_dict=None,
     return est
 
 
+def start_stream(est, t_window, n_windows, seed0=1):
+    """Feed ``est`` the first frame (``make_sequence(1)``) and stage
+    ``n_windows`` windows of ``t_window`` frames (seeds ``seed0`` on) on
+    its device as uint8. Returns (windows [(left, right)], masks)."""
+    device = est.device
+    ls, rs = make_sequence(1)
+    est(ls[0], rs[0], np.ones((1, H, W, 1), bool))
+    masks = torch.ones((t_window, 1, H, W, 1), dtype=torch.bool, device=device)
+    windows = []
+    for i in range(n_windows):
+        ls, rs = make_sequence(t_window, seed=seed0 + i)
+        windows.append((torch.from_numpy(ls).to(device),
+                        torch.from_numpy(rs).to(device)))
+    return windows, masks
+
+
 def bench_stream(est, t_window, n_windows, seed0=1, diagnostics=False,
                  fetch_diag=True):
     """Feed the first frame on its own, then time ``n_windows``
@@ -120,17 +159,7 @@ def bench_stream(est, t_window, n_windows, seed0=1, diagnostics=False,
     (``infer_trajectory``'s diagnostics mode). ``fetch_diag=False`` makes
     the maps but skips the copy, which separates the device's cost from
     the host link's."""
-    device = est.device
-    ls, rs = make_sequence(1)
-    est(ls[0], rs[0], np.ones((1, H, W, 1), bool))
-
-    masks = torch.ones((t_window, 1, H, W, 1), dtype=torch.bool, device=device)
-    windows = []
-    for i in range(n_windows + 2):
-        ls, rs = make_sequence(t_window, seed=seed0 + i)
-        windows.append((torch.from_numpy(ls).to(device),
-                        torch.from_numpy(rs).to(device)))
-
+    windows, masks = start_stream(est, t_window, n_windows + 2, seed0)
     for i in (-1, -2):                                     # warm-up
         res = est.track_window(windows[i][0], windows[i][1], masks,
                                diagnostics=diagnostics)
@@ -192,11 +221,7 @@ def main(argv=None):
     device = resolve_device(ap.parse_args(argv).device)
 
     d2h_mbps = measure_d2h_bandwidth(device)
-    # frame-to-frame, configuration/infer_f2f.yaml
-    f2f_cfg = {
-        "frame2frame": True, "lbgfs_iters": 20, "conf_weighing": True,
-        "depth_clipping": [1, 250], "dist_thr": 0.05, "average_pts": False,
-    }
+    f2f_cfg = F2F_SLAM
     f2f = build_estimator(f2f_cfg, device=device)
     f2f_fps, f2f_ok, f2f_iters = bench_stream(f2f, t_window=F2F_WINDOW,
                                               n_windows=6)
@@ -222,18 +247,7 @@ def main(argv=None):
         del floor_est
         _free(device)
 
-    # frame-to-model, configuration/infer_scared.yaml (100 LM iterations).
-    # The pool is pre-sized to its cap: the synthetic sequence appends at
-    # every frame (random-weight confidences defeat the depth-match test),
-    # so every pool pass costs the full F2M_POOL_FRAMES-frame capacity
-    f2m_cfg = {
-        "frame2frame": False, "lbgfs_iters": 100, "conf_weighing": True,
-        "depth_clipping": [1, 250], "dist_thr": 0.05, "average_pts": False,
-        "map_capacity": F2M_POOL_FRAMES * H * W,
-        "initial_bucket": F2M_POOL_FRAMES * H * W,
-        # the packed-winner primitive (slam/surfel_map.py), default segsort
-        "winner": os.environ.get("BENCH_F2M_WINNER", "segsort"),
-    }
+    f2m_cfg = f2m_slam()
     f2m = build_estimator(f2m_cfg, device=device)
     f2m_fps, f2m_ok, f2m_iters = bench_stream(f2m, t_window=F2M_WINDOW,
                                               n_windows=4, seed0=11)

@@ -30,9 +30,10 @@ H, W = 512, 640
 
 
 def build(batch, remat, accum=1, remat_policy="nothing", stop_flow_grad=True,
-          device=None, mesh=None):
+          device=None, mesh=None, lookup=None):
     """A trainer at (H, W) with random weights (seed 0) and its state;
-    ``batch`` is the global batch under ``mesh``."""
+    ``batch`` is the global batch under ``mesh``; ``lookup`` RAFT's lookup
+    where given (else the trainer's choice)."""
     from robust_pose_tpu_torch.train.trainer import PoseNetTrainer
 
     config = {
@@ -46,6 +47,8 @@ def build(batch, remat, accum=1, remat_policy="nothing", stop_flow_grad=True,
                   "grad_accum": accum, "stop_flow_grad": stop_flow_grad},
         "val": {"batch_size": batch},
     }
+    if lookup is not None:
+        config["model"]["lookup"] = lookup
     trainer = PoseNetTrainer(config, device=device, mesh=mesh)
     return trainer, trainer.init_state(seed=0)
 

@@ -20,7 +20,6 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from robust_pose_tpu_torch import se3
 from robust_pose_tpu_torch.device import resolve_device
@@ -32,6 +31,7 @@ from robust_pose_tpu_torch.slam.surfel_map import (
     surfel_fuse_render,
     surfel_render,
 )
+from robust_pose_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -151,7 +151,7 @@ class PoseEstimator:
         ``inv(pose)``): one pool pass when ``average_pts`` is off and
         ``upscale`` is 1, else a fuse and a render."""
         kmat = self.intrinsics[0]
-        with record_function("fuse_render"):
+        with span("fuse_render"):
             if not cfg.average_pts and cfg.upscale == 1:
                 return surfel_fuse_render(state, frame, pose, kmat, cfg)
             state = surfel_fuse(state, frame, pose, kmat, cfg)

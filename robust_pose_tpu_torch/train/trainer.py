@@ -52,7 +52,6 @@ import dataclasses
 from typing import Dict, Optional
 
 import torch
-from torch.profiler import record_function
 
 from robust_pose_tpu_torch.device import resolve_device
 from robust_pose_tpu_torch.models.posenet import PoseNet
@@ -63,6 +62,7 @@ from robust_pose_tpu_torch.parallel.mesh import (
     replicate,
 )
 from robust_pose_tpu_torch.train.losses import loss_metrics, supervised_pose_loss
+from robust_pose_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -268,22 +268,22 @@ class PoseNetTrainer:
         for p in state.params.values():
             p.grad = None
         losses = []
-        # profiler spans of the step's stages (chip_smoke.py's train_profile
-        # reads them); outside a profiler they cost microseconds
+        # spans of the step's stages (chip_smoke.py's train_profile and
+        # utils.costs read them); outside a profiler they cost microseconds
         for i in range(accum):
             mb = [x[i * b // accum:(i + 1) * b // accum] for x in batch]
-            with record_function("train_step.forward"):
+            with span("train_step.forward"):
                 loss_pose = self._forward(mb, train=True, step=state.step)
-            with record_function("train_step.backward"):
+            with span("train_step.backward"):
                 loss_pose.mean().backward()
             losses.append(loss_pose.detach())
         # the parameters with a gradient: the same set on every rank
         live = [k for k, p in state.params.items() if p.grad is not None]
         summed = [state.params[k].grad for k in live]
         if self.mesh is not None:
-            with record_function("train_step.allreduce"):
+            with span("train_step.allreduce"):
                 summed = mean_bucket(self.mesh, summed)
-        with record_function("train_step.update"):
+        with span("train_step.update"):
             grads = dict.fromkeys(state.params)
             grads.update({k: g / accum for k, g in zip(live, summed)})
             metrics = loss_metrics(self._global_rows(torch.stack(losses)),
