@@ -25,9 +25,13 @@ Phases, each printing one JSON line:
                   its precompute's 8; K4-K5: the training step at batch 8;
                   K1, K4, K5 at noisy and at smooth centres; K6-K7: the f2m
                   step at batch 1 and its precompute at 8; K1, K4-K7 one
-                  launch a 4-level lookup; then RAFT small's K1, K4, K5 at
-                  radius 3, K1 on C = 128 at B = 16 and 1, and K2 at its
-                  widths 32/64/96, as rows of their own): max error vs the
+                  launch a 4-level lookup; K2 as two rows, its statistics
+                  entry and the norm (statistics, normalize and ReLU in
+                  one call; forward with and without the ReLU, backward),
+                  at the three fnet shapes at B = 16 and 1; then RAFT
+                  small's K1, K4, K5 at radius 3, K1 on C = 128 at B = 16
+                  and 1, and K2 at its widths 32/64/96, as rows of their
+                  own): max error vs the
                   stated tolerance; the time of one call three ways, ms (CUDA
                   events around back-to-back calls: the larger of the
                   host's and the card's share), device_ms (torch.profiler:
@@ -200,7 +204,8 @@ Phases, each printing one JSON line:
                   second counted run of each with the same FLOPs and rows
                   that sum to the totals, and each kernel wrapper's
                   registered FLOPs and bytes at phase 2's shapes equal to
-                  the numbers its bound is computed from.
+                  the numbers its bound is computed from (the K2 norm: its
+                  design's bytes, x read twice; its bound the floor).
 20. tools      -- the profile tools on the card: profile_trace (f2f, 2
                   windows; its groups' ms within 1 % of the busy ms),
                   profile_stages, profile_f2m, profile_encoder (B = 1 and
@@ -357,7 +362,7 @@ def phase_device():
     print(smi, flush=True)
     libs = _build.build_all()
     require(set(libs) == {"corr_onthefly", "normal_eq", "corr_lanewise",
-                          "corr_pixel"}, f"built {set(libs)}")
+                          "corr_pixel", "instance_norm"}, f"built {set(libs)}")
     ptxas = {k: [l.strip() for l in v.splitlines() if "registers" in l]
              for k, v in _build.build_log.items()}
     emit({"phase": "device", "nvidia_smi": smi,
@@ -580,59 +585,216 @@ def kernel_corr(dev, radius=4, c=256, cases=K1_CASES):
             "err_ragged": ragged}
 
 
-def kernel_instance_norm(dev, widths=(64, 96, 128)):
-    """K2 at the three fnet shapes (B = 16, bf16); the time of one fnet
-    pass's 15 norms = 5 x (t(256x320xC1) + t(128x160xC2) + t(64x80xC3)),
-    (C1, C2, C3) = (64, 96, 128) in RAFT large, (32, 64, 96) in RAFT small
-    (its fnet also has 5 norms at each of the three scales)."""
+K2_BATCHES = (2 * T_WINDOW, 1)   # an f2f window's fnet batch, the f2m step's
+# norms of one fnet pass at each of its three scales (1/2, 1/4, 1/8): the
+# stem's and the residual blocks' norm1 / norm2 take the ReLU (5, 4, 4),
+# the two downsample norms do not (0, 1, 1)
+K2_RELU_NORMS = (5, 4, 4)
+K2_PLAIN_NORMS = (0, 1, 1)
+
+
+def bf16_ulp_err(got, ref):
+    """max |got - ref| in units of one bf16 ulp of |ref| (8 significant
+    bits), |ref| taken at least 2^-12: below that the f32 rounding of the
+    statistics (~1e-7 of |mu| rstd), not the bf16 cast, separates two
+    correct results. The fused norm's bound is 1: the two versions sum the
+    statistics in other orders, so a value on a rounding boundary may round
+    the other way."""
+    import torch
+
+    ref = ref.float()
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0 ** -12))) - 7)
+    return float(((got.float() - ref).abs() / ulp).max())
+
+
+def k2_stats_err(got, ref, hw):
+    """Relative error of the statistics: f32 sums of hw terms in other
+    orders (the sum's against its magnitude plus hw 1e-2)."""
+    (s_k, ss_k), (s_p, ss_p) = got, ref
+    return max(float(((s_k - s_p).abs() / (s_p.abs() + hw * 1e-2)).max()),
+               float(((ss_k - ss_p).abs() / ss_p.abs()).max()))
+
+
+K2_KINK = 1e-5    # |y| under which the ReLU's side is the sums' rounding
+
+
+def k2_backward_err(dev, shape, relu, g):
+    """The norm's gradient on an f32 input (the kernel forward, the backward
+    through the statistics kernel) against the plain composition's
+    autograd gradient: max |err| over max |ref|, bound 1e-4 (rtol 1e-4:
+    the statistics summed in other orders); and the f32 forward's max
+    |err| (bound 1e-5 on unit-variance outputs). With the ReLU, elements
+    whose plain output lies within K2_KINK of 0 are left out of the
+    gradient's comparison (a few in 10^7 of these inputs): the two
+    versions' sums may put them on either side of the kink, which moves
+    that element's gradient by O(1) and every other one of its (sample,
+    channel) by ~1 / (H W), well inside the bound."""
     import torch
 
     from robust_pose_tpu_torch.ops import instance_norm as K2
 
+    x = (torch.randn(shape, generator=g, device=dev) * 2.0 + 0.5).requires_grad_()
+    ct = torch.randn(shape, generator=g, device=dev)
+    y = K2.instance_norm(x, relu=relu)
+    y.backward(ct)
+    xr = x.detach().clone().requires_grad_()
+    yr = K2.instance_norm_plain(xr, relu=relu)
+    yr.backward(ct)
+    fwd = float((y - yr).detach().abs().max())
+    keep = yr.detach().abs() > K2_KINK if relu else torch.ones_like(x, dtype=torch.bool)
+    bwd = float(torch.where(keep, x.grad - xr.grad, 0.0).abs().max()
+                / xr.grad.abs().max())
+    require(fwd <= 1e-5 and bwd <= 1e-4,
+            f"instance_norm f32 {shape} relu={relu}: forward {fwd}, backward "
+            f"{bwd} of max |grad|")
+    return fwd, bwd
+
+
+def kernel_instance_norm(dev, widths=(64, 96, 128)):
+    """K2 (csrc/instance_norm.cu) at the three fnet shapes in bf16, at an f2f
+    window's batch of 16 and the f2m step's batch of 1; (C1, C2, C3) =
+    (64, 96, 128) in RAFT large, (32, 64, 96) in RAFT small (its fnet also
+    has 5 norms at each of the three scales). Two rows: the statistics
+    entry (``instance_norm_stats``, K2's own function: the training
+    backward's 15 calls a fnet pass) against its plain version at rel 1e-5,
+    and the norm (``instance_norm``, one ``instance_norm_fwd`` call: the
+    statistics, then y = [relu]((x - mu) rstd)), with and without the ReLU,
+    against ``instance_norm_plain`` to one bf16 ulp (``bf16_ulp_err``),
+    its mu / rstd against the plain ones (rel 1e-5), the same bits twice,
+    and its backward on an f32 input against the plain composition's
+    autograd gradient (rtol 1e-4); then both at widths the 16-byte loads
+    do not divide (one element a thread). Times of one fnet pass: the statistics
+    5 x (t(256x320xC1) + t(128x160xC2) + t(64x80xC3)); the norm with each
+    scale's norms with and without the ReLU (K2_RELU_NORMS,
+    K2_PLAIN_NORMS). Yardsticks: ``torch.sum`` of x and x^2 in f32 for the
+    statistics, ``F.instance_norm`` of the NCHW channels_last view (then
+    ``F.relu``) for the norm."""
+    import torch
+    import torch.nn.functional as F
+
+    from robust_pose_tpu_torch.models.raft import nchw
+    from robust_pose_tpu_torch.ops import instance_norm as K2
+
+    saved = (K2.launches, K2.stats_launches)
     g = torch.Generator(device=dev).manual_seed(2)
-    b = 2 * T_WINDOW
     shapes = [(H // 2, W // 2, widths[0]), (H // 4, W // 4, widths[1]),
               (H // 8, W // 8, widths[2])]
-    per = []
-    tot = {"ms": 0.0, "device_ms": 0.0, "host_us": 0.0, "device_launches": 0.0,
-           "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
-    err_all = 0.0
-    for h, w, c in shapes:
-        x = (torch.randn(b, h, w, c, generator=g, device=dev) * 2.0 + 0.5
-             ).bfloat16()
-        s_k, ss_k = K2.instance_norm_stats(x)
-        s_p, ss_p = K2.instance_norm_stats_plain(x)
-        # tolerance relative to the sums' magnitude: f32 sums of h*w terms
-        # in different orders
-        err = max(float(((s_k - s_p).abs() / (s_p.abs() + h * w * 1e-2)).max()),
-                  float(((ss_k - ss_p).abs() / ss_p.abs()).max()))
-        require(err <= 1e-5, f"instance_norm_stats {h}x{w}x{c} rel err {err}")
-        err_all = max(err_all, float((s_k - s_p).abs().max()),
-                      float((ss_k - ss_p).abs().max()))
-        saved = K2.launches
-        t = measure(lambda: K2.instance_norm_stats(x))
-        K2.launches = saved
-        plain_ms = cuda_time_ms(lambda: K2.instance_norm_stats_plain(x), reps=5)
-        lib_ms = cuda_time_ms(lambda: (torch.sum(x, (1, 2), dtype=torch.float32),
-                                       torch.sum(x * x, (1, 2),
-                                                 dtype=torch.float32)))
-        ops, nbytes, _ = costs.instance_norm_stats(x)
-        per.append({"shape": [b, h, w, c], **t, "plain_ms": plain_ms,
-                    "library_ms": lib_ms, "rel_err": err})
-        for k, v in (*t.items(), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                     ("bytes", nbytes), ("ops", ops)):
-            tot[k] += 5 * v
-    bound, by = costs.bound(tot["bytes"], {"f32": tot["ops"]})
-    return {"name": "instance_norm_stats" + ("" if widths[0] == 64 else "_small"),
-            "route": "triton",
-            "source": "robust_pose_tpu_torch/ops/instance_norm.py",
-            "replaces": "robust_pose_tpu/ops/pallas_instance_norm.py:27",
-            "max_abs_err": err_all, "tol": "rel 1e-5",
-            **{k: tot[k] for k in ("ms", "device_ms", "host_us", "device_launches")},
-            "plain_ms": tot["plain_ms"], "bound_ms": bound, "bound_by": by,
-            "library_ms": tot["library_ms"],
-            "unit": "one fnet pass: 15 norms (15 launches)",
-            "bytes": tot["bytes"], "ops": tot["ops"], "per_shape": per}
+    keys = ("ms", "device_ms", "host_us", "device_launches", "plain_ms",
+            "library_ms", "bytes", "ops", "design_bytes")
+    per_batch = {}
+    errs = {"stats_rel": 0.0, "stats_abs": 0.0, "norm_ulp": 0.0, "norm_abs": 0.0,
+            "moments_rel": 0.0, "f32_forward": 0.0, "backward_rel": 0.0}
+    for b in K2_BATCHES:
+        tot = {"stats": dict.fromkeys(keys, 0.0), "norm": dict.fromkeys(keys, 0.0)}
+        per = []
+        for (h, w, c), n_relu, n_plain in zip(shapes, K2_RELU_NORMS, K2_PLAIN_NORMS):
+            x = (torch.randn(b, h, w, c, generator=g, device=dev) * 2.0 + 0.5
+                 ).bfloat16()
+            got = K2.instance_norm_stats(x)
+            ref = K2.instance_norm_stats_plain(x)
+            err = k2_stats_err(got, ref, h * w)
+            require(err <= 1e-5, f"instance_norm_stats {b}x{h}x{w}x{c} rel err {err}")
+            require(same_bits(got, K2.instance_norm_stats(x)),
+                    f"instance_norm_stats {b}x{h}x{w}x{c}: two runs differ")
+            errs["stats_rel"] = max(errs["stats_rel"], err)
+            errs["stats_abs"] = max(errs["stats_abs"], *(
+                float((k - p).abs().max()) for k, p in zip(got, ref)))
+            t = measure(lambda: K2.instance_norm_stats(x), launches=2)
+            ops, nbytes, _ = costs.instance_norm_stats(x)
+            row_s = {**t, "plain_ms": cuda_time_ms(
+                lambda: K2.instance_norm_stats_plain(x), reps=5),
+                "library_ms": cuda_time_ms(
+                    lambda: (torch.sum(x, (1, 2), dtype=torch.float32),
+                             torch.sum(x * x, (1, 2), dtype=torch.float32))),
+                "bytes": nbytes, "ops": ops, "design_bytes": nbytes, "rel_err": err}
+            for k in keys:
+                tot["stats"][k] += 5 * row_s[k]
+            # the plain moments from the plain sums (ops/instance_norm's formula)
+            mu_p = ref[0] / (h * w)
+            rstd_p = torch.rsqrt(torch.clamp(ref[1] / (h * w) - mu_p * mu_p, min=0.0)
+                                 + K2.EPS)
+            rows_n = {}
+            for relu, count in ((True, n_relu), (False, n_plain)):
+                y, mu, rstd = K2.instance_norm_fwd(x, relu=relu)
+                y_p = K2.instance_norm_plain(x, relu=relu)
+                ulp = bf16_ulp_err(y, y_p)
+                mom = max(float(((mu - mu_p).abs() / (mu_p.abs() + 1e-2)).max()),
+                          float(((rstd - rstd_p).abs() / rstd_p).max()))
+                require(ulp <= 1.0 and mom <= 1e-5,
+                        f"instance_norm {b}x{h}x{w}x{c} relu={relu}: {ulp} bf16 "
+                        f"ulp, moments rel err {mom}")
+                require(torch.equal(y.view(torch.int16),
+                                    K2.instance_norm(x, relu=relu).view(torch.int16)),
+                        f"instance_norm {b}x{h}x{w}x{c}: two runs differ")
+                errs["norm_ulp"] = max(errs["norm_ulp"], ulp)
+                errs["norm_abs"] = max(errs["norm_abs"],
+                                       float((y.float() - y_p.float()).abs().max()))
+                errs["moments_rel"] = max(errs["moments_rel"], mom)
+                fwd, bwd = k2_backward_err(dev, (b, h, w, c), relu, g)
+                errs["f32_forward"] = max(errs["f32_forward"], fwd)
+                errs["backward_rel"] = max(errs["backward_rel"], bwd)
+                del y, mu, rstd, y_p
+                xn = nchw(x)
+                lib = ((lambda: F.relu(F.instance_norm(xn))) if relu
+                       else (lambda: F.instance_norm(xn)))
+                t = measure(lambda: K2.instance_norm(x, relu=relu), launches=3)
+                ops, nbytes, _ = costs.instance_norm(x, x_reads=1)
+                rows_n["relu" if relu else "no_relu"] = r = {
+                    **t, "plain_ms": cuda_time_ms(
+                        lambda: K2.instance_norm_plain(x, relu=relu), reps=5),
+                    "library_ms": cuda_time_ms(lib), "bytes": nbytes, "ops": ops,
+                    "design_bytes": costs.instance_norm(x)[1], "ulp_err": ulp}
+                for k in keys:
+                    tot["norm"][k] += count * r[k]
+            per.append({"shape": [b, h, w, c], "stats": row_s, "norm": rows_n})
+            del x, got, ref, mu_p, rstd_p
+            torch.cuda.empty_cache()
+        for k in ("stats", "norm"):
+            tot[k]["bound_ms"], tot[k]["bound_by"] = costs.bound(
+                tot[k]["bytes"], {"f32": tot[k]["ops"]})
+            tot[k]["design_bound_ms"] = costs.bound(
+                tot[k]["design_bytes"], {"f32": tot[k]["ops"]})[0]
+        per_batch[str(b)] = {"stats": tot["stats"], "norm": tot["norm"],
+                             "per_shape": per}
+    # the one-element-a-thread path: C not a multiple of the 16-byte vector
+    # (36 bf16, 18 f32), H W = 391 rows
+    for dtype, c in ((torch.bfloat16, 36), (torch.float32, 18)):
+        x = (torch.randn(3, 17, 23, c, generator=g, device=dev) * 2.0 + 0.5
+             ).to(dtype)
+        err = k2_stats_err(K2.instance_norm_stats(x),
+                           K2.instance_norm_stats_plain(x), 17 * 23)
+        ulp = bf16_ulp_err(K2.instance_norm(x, relu=True),
+                           K2.instance_norm_plain(x, relu=True))
+        require(err <= 1e-5 and ulp <= 1.0,
+                f"instance_norm {tuple(x.shape)} {dtype}: statistics rel err "
+                f"{err}, norm {ulp} bf16 ulp")
+        errs["stats_rel"] = max(errs["stats_rel"], err)
+        errs["norm_ulp"] = max(errs["norm_ulp"], ulp)
+    K2.launches, K2.stats_launches = saved
+    sfx = "" if widths[0] == 64 else "_small"
+    head = per_batch[str(K2_BATCHES[0])]
+    common = {"route": "cuda", "source": "robust_pose_tpu_torch/csrc/instance_norm.cu",
+              "replaces": "robust_pose_tpu/ops/pallas_instance_norm.py:27"}
+    top = ("ms", "device_ms", "host_us", "device_launches", "plain_ms",
+           "bound_ms", "bound_by", "library_ms", "design_bound_ms", "bytes", "ops")
+    return [
+        {"name": "instance_norm_stats" + sfx, **common,
+         "max_abs_err": errs["stats_abs"], "tol": "rel 1e-5",
+         **{k: head["stats"][k] for k in top},
+         "unit": "one fnet pass at B = 16: 15 statistics calls (30 kernels)",
+         "per_batch": {k: {"stats": v["stats"], "per_shape": [
+             {"shape": p["shape"], **p["stats"]} for p in v["per_shape"]]}
+             for k, v in per_batch.items()}, "errors": errs},
+        {"name": "instance_norm" + sfx, **common,
+         "max_abs_err": errs["norm_abs"],
+         "tol": {"bf16": "1 ulp of max(|y|, 2^-12)", "moments": "rel 1e-5",
+                 "f32_forward": 1e-5, "backward": "rtol 1e-4"},
+         **{k: head["norm"][k] for k in top},
+         "unit": "one fnet pass at B = 16: 15 norms (13 with the ReLU), "
+                 "15 calls (45 kernels)",
+         "per_batch": {k: {"norm": v["norm"], "per_shape": [
+             {"shape": p["shape"], **p["norm"]} for p in v["per_shape"]]}
+             for k, v in per_batch.items()}, "errors": errs}]
 
 
 def solver_inputs(dev, b=T_WINDOW, noise=True, seed=3):
@@ -1338,11 +1500,11 @@ def phase_kernels(dev):
     t0 = time.perf_counter()
     k3 = kernel_normal_eq(dev)
     k3["solve"] = kernel_lm_solve(dev)
-    out = [kernel_corr(dev), kernel_instance_norm(dev), k3,
+    out = [kernel_corr(dev), *kernel_instance_norm(dev), k3,
            *kernel_lanewise(dev), *kernel_pixel(dev),
            # RAFT small: K1, K4, K5 at radius 3, K2 at its fnet's widths
            kernel_corr(dev, 3, 128, K1_CASES[:3]),
-           kernel_instance_norm(dev, (32, 64, 96)), *kernel_lanewise(dev, 3)]
+           *kernel_instance_norm(dev, (32, 64, 96)), *kernel_lanewise(dev, 3)]
     torch.cuda.synchronize()
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
           "profiler_retries": profiling.profiler_retries, "kernels": out})
@@ -1517,14 +1679,17 @@ def phase_main(dev, smi, small=False):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {k: v for k, v in launch_counts().items() if k in (
-        "corr_window_lookup", "instance_norm_stats", "normal_eq", "lm_solve")}
+        "corr_window_lookup", "instance_norm", "instance_norm_stats", "normal_eq",
+        "lm_solve")}
 
     require(bool(torch.isfinite(poses).all()), f"{what}: non-finite poses")
     require(launches["corr_window_lookup"] == 12 * n_timed,
             f"{what}: corr lookups {launches}")
-    # 15 instance norms in fnet (both variants); cnet has BatchNorm (large)
-    # or no norm (small)
-    require(launches["instance_norm_stats"] == 15 * n_timed,
+    # 15 instance norms in fnet (both variants), one K2 call each, no
+    # statistics call alone (no backward); cnet has BatchNorm (large) or
+    # no norm (small)
+    require(launches["instance_norm"] == 15 * n_timed
+            and launches["instance_norm_stats"] == 0,
             f"{what}: instance norms {launches}")
     # one LM solve launch a window (every build inside it)
     one_solve_a_call(launches, what)
@@ -1629,7 +1794,8 @@ def launch_counts():
     from robust_pose_tpu_torch.ops import instance_norm as K2
     from robust_pose_tpu_torch.ops import normal_eq as K3
 
-    return {"corr_window_lookup": K1.launches, "instance_norm_stats": K2.launches,
+    return {"corr_window_lookup": K1.launches, "instance_norm": K2.launches,
+            "instance_norm_stats": K2.stats_launches,
             "normal_eq": K3.launches, "lm_solve": K3.solve_launches,
             "lanewise_lookup": L.launches,
             "lanewise_lookup_bwd": L.bwd_launches, "pixel_lookup": KP.launches,
@@ -1673,7 +1839,8 @@ def zero_launch_counts():
     from robust_pose_tpu_torch.ops import instance_norm as K2
     from robust_pose_tpu_torch.ops import normal_eq as K3
 
-    K1.launches = K2.launches = K3.launches = K3.solve_launches = 0
+    K1.launches = K2.launches = K2.stats_launches = 0
+    K3.launches = K3.solve_launches = 0
     L.launches = L.bwd_launches = 0
     KP.launches = KP.grouped_launches = 0
     SOLVE_CALLS[0] = 0
@@ -1687,7 +1854,8 @@ def restore_launch_counts(lc):
     from robust_pose_tpu_torch.ops import instance_norm as K2
     from robust_pose_tpu_torch.ops import normal_eq as K3
 
-    K1.launches, K2.launches = lc["corr_window_lookup"], lc["instance_norm_stats"]
+    K1.launches, K2.launches = lc["corr_window_lookup"], lc["instance_norm"]
+    K2.stats_launches = lc["instance_norm_stats"]
     K3.launches, K3.solve_launches = lc["normal_eq"], lc["lm_solve"]
     L.launches, L.bwd_launches = lc["lanewise_lookup"], lc["lanewise_lookup_bwd"]
     KP.launches, KP.grouped_launches = lc["pixel_lookup"], lc["grouped_lookup"]
@@ -1830,8 +1998,8 @@ def phase_train_slice(dev, small=False):
             "train_slice: no RAFT gradient")
     lc = c["launches"]
     require(lc["lanewise_lookup"] > 0 and lc["lanewise_lookup_bwd"] > 0
-            and lc["instance_norm_stats"] > 0 and lc["lm_solve"] == 1
-            and lc["normal_eq"] == 0 and c["solves"] == 1
+            and lc["instance_norm"] > 0 and lc["instance_norm_stats"] > 0
+            and lc["lm_solve"] == 1 and lc["normal_eq"] == 0 and c["solves"] == 1
             and lc["corr_window_lookup"] == 0, f"train_slice: launches {lc}")
     require(not any(p["launches"].values()), f"train_slice: CPU launches")
     extra = {}
@@ -2344,7 +2512,10 @@ def train_run(dev, smi, phase, name, cfg, sd, batch, live):
     finite = [g for g in gnorm if np.isfinite(g)]
     require(min(finite, default=1.0) > 0, f"{what}: zero gradient norm {gnorm}")
     one_solve_a_call(launches, what)
-    require(per_step["lm_solve"] == 1 and per_step["instance_norm_stats"] > 0,
+    # the norms' backward recomputes through the statistics entry: only
+    # where RAFT's gradients are live
+    require(per_step["lm_solve"] == 1 and per_step["instance_norm"] > 0
+            and (per_step["instance_norm_stats"] > 0) == live,
             f"{what}: launches {launches}")
     if not live:
         require(per_step["lanewise_lookup"] == 0
@@ -2566,7 +2737,8 @@ def phase_f2m_slice(dev):
         require(agree >= 0.995, f"f2m_slice {lookup}: model-frame masks {flips}")
         require(lc[lookup_k] > 0 and lc[other_k] == 0 and lc["normal_eq"] == 0
                 and lc["lm_solve"] == c["solves"] > 0
-                and lc["instance_norm_stats"] > 0, f"f2m_slice {lookup}: {lc}")
+                and lc["instance_norm"] > 0 and lc["instance_norm_stats"] == 0,
+                f"f2m_slice {lookup}: {lc}")
         require(not any(p["launches"].values()), f"f2m_slice {lookup}: CPU launches")
         report[lookup] = {"pose_tangent_dist": dist, "success": c["succ"].tolist(),
                           "n_active_cuda": c["n_active"], "n_active_cpu": p["n_active"],
@@ -2643,8 +2815,9 @@ def phase_f2m(dev, smi):
     launches = launch_counts()
     reruns = f2m_reruns(launches, "corr_window_lookup", N_TIMED)
     pre, per = F2M_WINDOW_K2
-    require(launches["instance_norm_stats"]
-            == pre * N_TIMED + per * T_WINDOW * (N_TIMED + reruns),
+    require(launches["instance_norm"]
+            == pre * N_TIMED + per * T_WINDOW * (N_TIMED + reruns)
+            and launches["instance_norm_stats"] == 0,
             f"f2m: instance norms {launches}")
     one_solve_a_call(launches, "f2m")
     require(launches["lm_solve"] == T_WINDOW * (N_TIMED + reruns)
@@ -2759,7 +2932,7 @@ def phase_parity(dev, smi):
     require(ok and all(r[3] for r in rows), f"parity: rows {rows}")
     tracked = PARITY_FRAMES - 1
     require(launches["corr_window_lookup"] >= PARITY_FRAMES
-            and launches["instance_norm_stats"] >= PARITY_FRAMES
+            and launches["instance_norm"] >= PARITY_FRAMES
             and launches["lm_solve"] >= tracked,
             f"parity: the port's kernels did not run each frame: {launches}")
     out_json = os.path.join(root, "golden_rows.json")
@@ -2803,8 +2976,8 @@ def registered(fn):
 
 def kernel_costs(dev):
     """Each kernel wrapper's registered FLOPs and bytes at phase kernels'
-    shapes (K1: an f2f window's B = 16, noisy, bf16; K2: the three fnet
-    shapes at B = 16; K3: one build and the B = 8, 20-iteration solve;
+    shapes (K1: an f2f window's B = 16, noisy, bf16; K2's statistics entry
+    and norm: the three fnet shapes at B = 16; K3: one build and the B = 8, 20-iteration solve;
     K4/K5: the training step's noisy inputs; K6/K7: the f2m step's B = 1)
     against the numbers its bound is computed from there."""
     import torch
@@ -2836,6 +3009,17 @@ def kernel_costs(dev):
             {"shape": list(x.shape), "registered": list(got["instance_norm_stats"])})
         require(got["instance_norm_stats"] == (ops, nbytes),
                 f"costs instance_norm_stats {tuple(x.shape)}: {got}")
+        # the norm registers the bytes its design moves (x read twice);
+        # its row's bound takes the floor (x read once) from the same formula
+        ops, nbytes, _ = costs.instance_norm(x)
+        floor = costs.instance_norm(x, x_reads=1)
+        got = registered(lambda: K2.instance_norm(x, relu=True))
+        out.setdefault("instance_norm", []).append(
+            {"shape": list(x.shape), "registered": list(got["instance_norm"]),
+             "bound_from": [floor[0], floor[1]]})
+        require(got == {"instance_norm": (ops, nbytes)}
+                and nbytes - floor[1] == x.numel() * x.element_size(),
+                f"costs instance_norm {tuple(x.shape)}: {got}")
     planes, kvec, lw, g = solver_inputs(dev, T_WINDOW)
     from robust_pose_tpu_torch import se3
     pose = se3.exp(0.01 * torch.randn(T_WINDOW, 6, generator=g, device=dev))
@@ -3021,16 +3205,16 @@ def phase_bench(dev, smi):
     require(len(f2f) == BENCH_F2F_WINDOWS and len(f2m) == BENCH_F2M_WINDOWS,
             f"bench: {len(f2f)} f2f and {len(f2m)} f2m windows")
     others = ("lanewise_lookup", "lanewise_lookup_bwd", "pixel_lookup",
-              "grouped_lookup", "normal_eq")
+              "grouped_lookup", "normal_eq", "instance_norm_stats")
     for w in f2f:
-        require(w["corr_window_lookup"] == 12 and w["instance_norm_stats"] == 15
+        require(w["corr_window_lookup"] == 12 and w["instance_norm"] == 15
                 and w["lm_solve"] == 1 and not any(w[k] for k in others),
                 f"bench: f2f window launches {w}")
     reruns = 0
     pre, per = F2M_WINDOW_K2
     for w in f2m:
         r = f2m_reruns(w, "corr_window_lookup", 1)
-        require(w["instance_norm_stats"] == pre + per * T_WINDOW * (1 + r)
+        require(w["instance_norm"] == pre + per * T_WINDOW * (1 + r)
                 and w["lm_solve"] == T_WINDOW * (1 + r)
                 and not any(w[k] for k in others),
                 f"bench: f2m window launches {w}")
@@ -3040,7 +3224,7 @@ def phase_bench(dev, smi):
           "main_fps": MAIN_FPS.get("main"), "f2m_fps": F2M_FPS.get("f2m"),
           "seconds": seconds, "windows": {"f2f": len(f2f), "f2m": len(f2m)},
           "launches_per_f2f_window": {k: f2f[0][k] for k in (
-              "corr_window_lookup", "instance_norm_stats", "lm_solve")},
+              "corr_window_lookup", "instance_norm", "lm_solve")},
           "f2m_window_loop_reruns": reruns, "launches": launches})
     torch.cuda.empty_cache()
     return out
@@ -3347,7 +3531,8 @@ def scenario_rows(dev):
             and printed.getvalue().count("finished") == len(CLI_ROWS),
             f"cli rows: printed {heads}")
     for w in windows:
-        require(w["corr_window_lookup"] == 12 and w["instance_norm_stats"] == 15
+        require(w["corr_window_lookup"] == 12 and w["instance_norm"] == 15
+                and w["instance_norm_stats"] == 0
                 and w["lm_solve"] == 1 and w["normal_eq"] == 0,
                 f"cli rows: window launches {w}")
     return {"rows": len(CLI_ROWS), "trajectory_lines": same,
@@ -3411,7 +3596,8 @@ def viewer_runs(dev):
     readback = lambda: {k: v.cpu().float() for k, v in diag.items()}
     dev_ms, n_ops = device_time_ms(readback)
     for w in shown["windows"]:
-        require(w["corr_window_lookup"] == 12 and w["instance_norm_stats"] == 15
+        require(w["corr_window_lookup"] == 12 and w["instance_norm"] == 15
+                and w["instance_norm_stats"] == 0
                 and w["lm_solve"] == 1 and w["normal_eq"] == 0,
                 f"cli viewer: window launches {w}")
     keep = ("fps", "loop_s", "stage_ms", "launches", "ate_rmse_mm")
@@ -3438,13 +3624,14 @@ def phase_cli(dev, smi):
     lc = f2f["launches"]
     require(len(f2f["windows"]) == n_win, f"cli f2f: {len(f2f['windows'])} windows")
     for w in f2f["windows"]:
-        require(w["corr_window_lookup"] == 12 and w["instance_norm_stats"] == 15
+        require(w["corr_window_lookup"] == 12 and w["instance_norm"] == 15
+                and w["instance_norm_stats"] == 0
                 and w["lm_solve"] == 1 and w["normal_eq"] == 0,
                 f"cli f2f: window launches {w}")
     one_solve_a_call(lc, "cli f2f")
     require(lc["lm_solve"] == n_win, f"cli f2f: launches {lc}")
     per_window = {k: f2f["windows"][0][k] for k in (
-        "corr_window_lookup", "instance_norm_stats", "lm_solve")}
+        "corr_window_lookup", "instance_norm", "lm_solve")}
     emit({"phase": "cli", "part": "preproc", "card": smi,
           "decode": [DECODE_H, DECODE_W], "out": [H, W], "tol": PREPROC_TOL,
           **pre})
@@ -3821,12 +4008,13 @@ def train_cli_run(dev, smi, name, cfg, sd, data, live):
     one_solve_a_call(launches, what)
     for i, lc in enumerate(record["steps"]):
         k1 = lc["corr_window_lookup"]
-        require(lc["lm_solve"] == 1 and lc["instance_norm_stats"] > 0
+        require(lc["lm_solve"] == 1 and lc["instance_norm"] > 0
+                and (lc["instance_norm_stats"] > 0) == live
                 and lc["normal_eq"] == 0 and k1 == (0 if live else iters)
                 and lc["lanewise_lookup"] == lc["lanewise_lookup_bwd"] == 0,
                 f"{what}: step {i} launches {lc}")
     per_step = {k: record["steps"][1][k] for k in (
-        "corr_window_lookup", "instance_norm_stats", "lm_solve")}
+        "corr_window_lookup", "instance_norm", "instance_norm_stats", "lm_solve")}
     per_val = {k: record["vals"][0]["launches"][k] for k in per_step}
     # the timed steps: all but the first (warm-up); each ends in the log
     # stage's metric read back, a synchronize
@@ -4104,7 +4292,7 @@ def ddp_steps(tr, st, batch):
     dt = (time.perf_counter() - t0) / TRAIN_TIMED
     launches = launch_counts()
     per_step = {k: launches[k] / TRAIN_TIMED for k in (
-        "corr_window_lookup", "instance_norm_stats", "lm_solve",
+        "corr_window_lookup", "instance_norm", "instance_norm_stats", "lm_solve",
         "lanewise_lookup", "lanewise_lookup_bwd")}
     calls = {k: v / TRAIN_TIMED for k, v in tr.mesh.calls.items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -4603,19 +4791,22 @@ def main():
     phase_roofline(dev, smi)
     phase_tools(dev, smi)
     phase_bench(dev, smi)
-    # each kernel's launches on its own path: K1-K3 in the f2f main path
-    # (K3: the LM solve kernel, one launch a window, every build inside),
-    # K4-K5 in the training step with live RAFT, K7 in the f2m window with
+    # each kernel's launches on its own path: K1-K3 and the K2 norm in the
+    # f2f main path (K3: the LM solve kernel, one launch a window, every
+    # build inside), K4-K5 and K2's statistics entry (the norms' backward)
+    # in the training step with live RAFT, K7 in the f2m window with
     # lookup "grouped"; K6 has no path (none in the JAX package either);
-    # RAFT small's K1 (radius 3) and K2 (its widths) in its f2f windows,
-    # its K4-K5 (radius 3) in its training step ("dots")
+    # RAFT small's K1 (radius 3) and K2 norm (its widths) in its f2f
+    # windows, its K4-K5 (radius 3) and K2 statistics in its training
+    # step ("dots")
     launches["normal_eq"] = launches["lm_solve"]
-    launches.update({k: train["b"][k] for k in ("lanewise_lookup",
-                                                 "lanewise_lookup_bwd")})
+    launches.update({k: train["b"][k] for k in (
+        "lanewise_lookup", "lanewise_lookup_bwd", "instance_norm_stats")})
     launches.update(pixel_lookup=0, grouped_lookup=f2m_grouped["grouped_lookup"])
     launches.update(
         corr_window_lookup_r3=small_f2f["corr_window_lookup"],
-        instance_norm_stats_small=small_f2f["instance_norm_stats"],
+        instance_norm_small=small_f2f["instance_norm"],
+        instance_norm_stats_small=small_train["instance_norm_stats"],
         lanewise_lookup_r3=small_train["lanewise_lookup"],
         lanewise_lookup_bwd_r3=small_train["lanewise_lookup_bwd"])
     for k in kernels:

@@ -121,13 +121,14 @@ def nhwc(x: Tensor) -> Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-def instance_norm_nchw(x: Tensor) -> Tensor:
-    """``instance_norm`` on an NCHW tensor through its NHWC view; the stats
-    kernel takes contiguous NHWC, i.e. a channels_last NCHW tensor."""
+def instance_norm_nchw(x: Tensor, relu: bool = False) -> Tensor:
+    """``instance_norm`` (then a ReLU where ``relu``: one kernel call on the
+    card) on an NCHW tensor through its NHWC view; the kernel takes
+    contiguous NHWC, i.e. a channels_last NCHW tensor."""
     xh = nhwc(x)
     if not xh.is_contiguous():
         xh = xh.contiguous()
-    return nchw(instance_norm(xh))
+    return nchw(instance_norm(xh, relu=relu))
 
 
 class ResidualBlock(nn.Module):
@@ -146,16 +147,18 @@ class ResidualBlock(nn.Module):
             if self.has_down:
                 self.norm3 = BatchNorm(planes)
 
-    def _norm(self, name, x):
+    def _norm(self, name, x, relu=False):
+        """The block's norm ``name``, then a ReLU where ``relu`` (fused into
+        the instance norm)."""
         if self.norm == "instance":
-            return instance_norm_nchw(x)
+            return instance_norm_nchw(x, relu)
         if self.norm == "batch":
-            return getattr(self, name)(x)
-        return x
+            x = getattr(self, name)(x)
+        return F.relu(x) if relu else x
 
     def forward(self, x):
-        y = F.relu(self._norm("norm1", self.conv1(x)))
-        y = F.relu(self._norm("norm2", self.conv2(y)))
+        y = self._norm("norm1", self.conv1(x), relu=True)
+        y = self._norm("norm2", self.conv2(y), relu=True)
         if self.has_down:
             x = self._norm("norm3", self.downsample(x))
         return F.relu(x + y)
@@ -193,10 +196,9 @@ class BasicEncoder(nn.Module):
         the others zeroed. None: no dropout."""
         x = self.conv1(x)
         if self.norm == "instance":
-            x = instance_norm_nchw(x)
-        elif self.norm == "batch":
-            x = self.norm1(x)
-        x = F.relu(x)
+            x = instance_norm_nchw(x, relu=True)
+        else:
+            x = F.relu(self.norm1(x) if self.norm == "batch" else x)
         for i in range(3):
             x = getattr(self, f"layer{i + 1}_0")(x)
             x = getattr(self, f"layer{i + 1}_1")(x)

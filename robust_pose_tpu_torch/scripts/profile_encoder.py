@@ -2,9 +2,10 @@
 ``scripts/profile_encoder.py``): RAFT's feature encoder (fnet: 256
 channels, 15 instance norms, bf16) at 512x640, split three ways:
 
-  * the norm variants: the norms' statistics through K2 (the Triton
-    kernel, ``ops/instance_norm``) against its plain PyTorch version, in
-    the same process on the same inputs;
+  * the norm variants: each norm (with the ReLU after it) as one K2 call
+    (``instance_k2``: the CUDA C++ kernel, ``ops/instance_norm``) against
+    its plain PyTorch version run on the card (``instance_plain``:
+    ``instance_norm_plain``), in the same process on the same inputs;
   * batch scaling at B = 1, 2, 8 and 16 (an f2m step encodes 1 image, an
     f2f window of 8 frames 16);
   * a conv-only ablation (``norm="none"``: the same convolutions, no
@@ -36,17 +37,18 @@ VARIANTS = ("instance_k2", "instance_plain", "none")
 
 
 @contextlib.contextmanager
-def plain_stats():
-    """The instance norms' statistics through the plain version (on the
-    card too) instead of K2."""
+def plain_norms():
+    """The encoders' instance norms (and the ReLU after them) through the
+    plain version, on the card too, instead of K2."""
+    from robust_pose_tpu_torch.models import raft
     from robust_pose_tpu_torch.ops import instance_norm as K2
 
-    kernel = K2.instance_norm_stats
-    K2.instance_norm_stats = K2.instance_norm_stats_plain
+    kernel = raft.instance_norm
+    raft.instance_norm = K2.instance_norm_plain
     try:
         yield
     finally:
-        K2.instance_norm_stats = kernel
+        raft.instance_norm = kernel
 
 
 def encoder(norm, device):
@@ -89,7 +91,7 @@ def measure(variant, b, device, reps):
     """One row: ``variant`` (VARIANTS) at batch ``b``."""
     enc = encoder("none" if variant == "none" else "instance", device)
     x = images(b, device, seed=b)
-    ctx = plain_stats() if variant == "instance_plain" else contextlib.nullcontext()
+    ctx = plain_norms() if variant == "instance_plain" else contextlib.nullcontext()
     with ctx, torch.no_grad():
         fn = lambda: enc(x)
         ev = profiling.device_events(fn, reps)

@@ -266,6 +266,18 @@ def instance_norm_stats(x: Tensor):
     return 3 * x.numel(), x.numel() * x.element_size() + 2 * b * c * 4, "f32"
 
 
+def instance_norm(x: Tensor, x_reads: int = 2):
+    """The norm (``ops/instance_norm.instance_norm``, one
+    ``instance_norm_fwd`` call): x (B, H, W, C) read ``x_reads`` times (2:
+    the statistics pass and the apply pass, as the kernel moves it; 1: the
+    floor that ``chip_smoke.py`` takes as the bound), y like x written, mu
+    and rstd (B, C) f32 written; 5 operations an element (the statistics'
+    3, a subtract and a multiply)."""
+    b, c = x.shape[0], x.shape[-1]
+    nbytes = (x_reads + 1) * x.numel() * x.element_size() + 2 * b * c * 4
+    return 5 * x.numel(), nbytes, "f32"
+
+
 K3_PLANES = 10          # the planes a build's math reads (pcl1, pcl2, flow, 2 weights)
 K3_OPS_PER_PIXEL = 260  # f32 operations a pixel (see csrc/normal_eq.cu)
 

@@ -183,7 +183,7 @@ def device_events(fn, reps: int = 10, per_call=None):
 
 KERNEL_GROUPS = (            # (group, substrings of the device kernel name)
     ("corr_window_lookup (K1)", ("corr_window",)),
-    ("instance_norm_stats (K2)", ("_stats_partial", "_stats_finish")),
+    ("instance_norm (K2)", ("instance_norm_",)),
     ("normal_eq (K3)", ("normal_eq",)),
     ("lanewise_lookup (K4)", ("lanewise_fwd",)),
     ("lanewise_lookup_bwd (K5)", ("lanewise_bwd",)),

@@ -252,7 +252,7 @@ def test_f2f_window_counts_identically_twice(small):
     assert {f"infer_window.{s}" for s in ("encode", "flow", "weights", "solve")} \
         <= set(c1.by_span)
     assert c1.by_op["corr_window_lookup"][2] == 1
-    assert c1.by_op["instance_norm_stats"][2] == 15
+    assert c1.by_op["instance_norm"][2] == 15
     assert c1.by_op["lm_solve"][2] == 1
     assert c1.by_dtype["bf16"][0] > 0
 

@@ -62,6 +62,21 @@ def test_no_forbidden_import_statement(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path}: import {name}"
 
 
+def test_no_triton_import():
+    """Every kernel of the port is CUDA C++ built by ``ops/_build.py``: no
+    module of the port imports Triton, not even inside a function."""
+    for path in sorted(PKG.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            assert all(n.split(".")[0] != "triton" for n in names), \
+                f"{path.relative_to(ROOT)}: import {names}"
+
+
 def test_entry_points_need_a_device_choice_without_cuda():
     """Without a card and without device='cpu' the entry points raise."""
     from robust_pose_tpu_torch.models.posenet import PoseNet
@@ -91,11 +106,16 @@ def test_kernel_wrappers_take_plain_versions_only_on_cpu():
     )
 
     counters = lambda: (corr_onthefly.launches, instance_norm.launches,
+                        instance_norm.stats_launches,
                         normal_eq.launches, corr_lanewise.launches,
                         corr_lanewise.bwd_launches, corr_pixel.launches,
                         corr_pixel.grouped_launches)
     before = counters()
     instance_norm.instance_norm_stats(torch.ones(1, 4, 4, 8))
+    xn = torch.ones(1, 4, 4, 8, requires_grad=True)
+    instance_norm.instance_norm(xn, relu=True).sum().backward()
+    instance_norm.instance_norm(torch.ones(1, 4, 4, 8))
+    instance_norm.instance_norm_fwd(torch.ones(1, 4, 4, 8), relu=True)
     vol, coords = torch.ones(1, 3, 3, 5), torch.zeros(1, 5, 2)
     corr_lanewise.lanewise_fwd(vol, coords, 4, 1.0)
     corr_lanewise.lanewise_bwd(vol, coords, torch.ones(1, 81, 5), 4, 1.0)
@@ -108,6 +128,9 @@ def test_kernel_wrappers_take_plain_versions_only_on_cpu():
     assert counters() == before
     with pytest.raises(RuntimeError, match="unsupported device"):
         instance_norm.instance_norm_stats(torch.ones(1, 4, 4, 8, device="meta"))
+    for norm in (instance_norm.instance_norm, instance_norm.instance_norm_fwd):
+        with pytest.raises(RuntimeError, match="unsupported device"):
+            norm(torch.ones(1, 4, 4, 8, device="meta"), relu=True)
     meta = lambda t: t.to("meta")
     with pytest.raises(RuntimeError, match="unsupported device"):
         corr_lanewise.lanewise_fwd(meta(vol), meta(coords), 4, 1.0)

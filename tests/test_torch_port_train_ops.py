@@ -198,7 +198,7 @@ def test_instance_norm_stats_backward_matches_jax(reference, monkeypatch):
     """The port's stats backward (dx = gs + 2 x gss) against JAX: the
     gradient of ``instance_norm`` (autodiff of its CPU formulation), and the
     Pallas stats' custom VJP in interpret mode. rtol 1e-4. The stats are
-    made to come back without autograd history, as the Triton kernel's do
+    made to come back without autograd history, as the kernel's do
     on the card, so the gradient must come from the stats' own backward."""
     plain = instance_norm.instance_norm_stats_plain
     monkeypatch.setattr(instance_norm, "instance_norm_stats_plain",
