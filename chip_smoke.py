@@ -9,9 +9,11 @@
                                     # 48 fresh trainers; no result line
     python3 chip_smoke.py cli       # phases 1, 4 and 14; no result line
     python3 chip_smoke.py train_cli # phases 1, 7 and 16; no result line
-    python3 chip_smoke.py bench     # phases 1, 4, 9 and 21; no result line
+    python3 chip_smoke.py bench     # phases 1, 4, 9 and 22; no result line
     python3 chip_smoke.py ddp       # phases 1, 7 and 17; no result line
     python3 chip_smoke.py tools     # phases 1, 18, 19 and 20; no result line
+    python3 chip_smoke.py probes    # phase 1, then phase 21 with every probe
+                                    # at its defaults; no result line
 
 Phases, each printing one JSON line:
 
@@ -211,7 +213,22 @@ Phases, each printing one JSON line:
                   profile_stages, profile_f2m, profile_encoder (B = 1 and
                   16, K2 against the plain norm and conv only) and
                   ab_exact_render over 4 f2m frames.
-21. bench      -- the port's streaming bench (robust_pose_tpu_torch.
+21. probes     -- the surfel-winner and per-op probes (robust_pose_tpu_torch.
+                  scripts.profile_{winner_prims,scatter,warp4,render_decomp,
+                  device}) once each at the 4-frame pool's shapes (512x640,
+                  1,638,400 rows into 327,680 pixels), repetitions cut:
+                  render_decomp over 4 input batches, profile_device's
+                  prims, fuse_render, norm and solve stages at K = 2 and 6.
+                  Each script's card-side equalities (_seg_kmax and
+                  _seg_covered against scatter-max, the unique extension,
+                  the 2-column and the fused scatters against the 1-column
+                  and two-pass ones, every chunked gather and scatter
+                  against the whole one, sort winners against scatter-max,
+                  coverage by one sort against scatter-max) must hold, and
+                  every row's device ms be finite and positive and its
+                  counted bytes positive; the rows, and per script its
+                  seconds with its rows' and their traces' shares.
+22. bench      -- the port's streaming bench (robust_pose_tpu_torch.
                   scripts.bench.main, bench.py's defaults) in this process:
                   its one JSON line with bench.py's keys, FPS finite and
                   positive, success rates in [0, 1], LM iterations within
@@ -3141,6 +3158,53 @@ def phase_tools(dev, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase probes
+# ---------------------------------------------------------------------------
+
+# (script, its arguments): at the 4-frame pool's shapes, repetitions cut
+PROBES = (("profile_winner_prims", []), ("profile_scatter", []),
+          ("profile_warp4", []),
+          ("profile_render_decomp", ["--frames", "4", "--iters", "4"]),
+          ("profile_device", ["--stage", "prims,fuse_render,norm,solve",
+                              "--k1", "2", "--k2", "6"]))
+# every probe at its defaults (python3 chip_smoke.py probes)
+PROBES_FULL = tuple((name, []) for name, _ in PROBES[:-1]) + (
+    ("profile_device", ["--stage", "all"]),)
+
+
+def probe_rows(out):
+    """A probe's rows (profile_device's over its stages)."""
+    if "stages" in out:
+        return [r for rows in out["stages"].values() for r in rows]
+    return out["rows"]
+
+
+def phase_probes(dev, smi, probes=PROBES):
+    """The surfel-winner and per-op probes, each ``main`` once in this
+    process: every card-side check true, every row's device ms finite and
+    positive and its counted bytes positive. ``seconds``: each script's
+    host seconds, its rows' share, their traces' share and retakes."""
+    import importlib
+
+    outs, seconds = {}, {}
+    for name, argv in probes:
+        mod = importlib.import_module(f"robust_pose_tpu_torch.scripts.{name}")
+        t0 = time.perf_counter()
+        out, _ = captured(mod.main, argv)
+        took = time.perf_counter() - t0
+        require(out["checks"] and all(out["checks"].values()),
+                f"{name}: card-side checks {out['checks']}")
+        rows = probe_rows(out)
+        bad = [r["name"] for r in rows if not (
+            np.isfinite(r["device_ms"]) and r["device_ms"] > 0 and r["bytes"] > 0)]
+        require(rows and not bad, f"{name}: rows without device ms or bytes: {bad}")
+        outs[name] = out
+        seconds[name] = {"all": took, **{k: sum(r[k] for r in rows) for k in
+                                         ("wall_s", "profiler_s", "profiler_retries")}}
+    emit({"phase": "probes", "card": smi, **outs, "seconds": seconds})
+
+
+# ---------------------------------------------------------------------------
 # phase bench
 # ---------------------------------------------------------------------------
 
@@ -4772,6 +4836,10 @@ def main():
         phase_roofline(dev, smi)
         phase_tools(dev, smi)
         return 0
+    if sys.argv[1:] == ["probes"]:
+        # every probe at its defaults; no result line
+        phase_probes(dev, smi, PROBES_FULL)
+        return 0
     kernels = phase_kernels(dev)
     phase_slice(dev)
     launches = phase_main(dev, smi)
@@ -4790,6 +4858,7 @@ def main():
     phase_parity(dev, smi)
     phase_roofline(dev, smi)
     phase_tools(dev, smi)
+    phase_probes(dev, smi)
     phase_bench(dev, smi)
     # each kernel's launches on its own path: K1-K3 and the K2 norm in the
     # f2f main path (K3: the LM solve kernel, one launch a window, every

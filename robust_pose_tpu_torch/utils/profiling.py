@@ -12,7 +12,10 @@ time by group (``KERNEL_GROUPS``), by name and by span;
 copies, memsets), retaking a trace that lost some. ``span_rates`` joins a
 profiled run's spans to a counted run's: the achieved GB/s and TFLOP/s of
 each span. The scripts ``profile_trace``, ``profile_stages`` and
-``profile_f2m`` are command lines over these.
+``profile_f2m`` are command lines over these. ``chained_row`` times one
+op by K chained calls (device ms, host slope, launches and counted
+bytes): the rows of the probes ``profile_{device,winner_prims,scatter,
+warp4,render_decomp}``.
 
 The JAX module's ``enable_compile_cache`` has no counterpart: PyTorch runs
 eagerly and compiles no program to cache (the port's hand-written kernels
@@ -119,6 +122,7 @@ class StageTimer:
 
 PROFILER_MARKS = 8            # marker kernels that open a device_events trace
 profiler_retries = 0          # device_events traces retaken (events lost)
+_marks = PROFILER_MARKS       # the markers that opened the last trace kept
 
 
 def _runtime_launch(e) -> bool:
@@ -142,13 +146,15 @@ def device_events(fn, reps: int = 10, per_call=None):
     the same trace recorded (where that side misses some, two traces with
     the same count). Otherwise it is taken again with twice the markers,
     after a pause, eight times at most, each retry counted in
-    ``profiler_retries``."""
-    global profiler_retries
+    ``profiler_retries``. A trace opens with as many markers as the last
+    one kept: late in a long process a first take with 8 lost events
+    nearly every time."""
+    global profiler_retries, _marks
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    marks = PROFILER_MARKS
+    marks = _marks
     fullest = None           # where the host side recorded too few launches
     for _ in range(8):
         torch.cuda.synchronize()
@@ -172,6 +178,7 @@ def device_events(fn, reps: int = 10, per_call=None):
         else:                # no host record of some launch: two traces alike
             want, fullest = fullest, max(fullest or 0, len(ev))
         if ev and len(ev) == want:
+            _marks = marks
             return sorted(ev, key=lambda e: e.time_range.start)
         profiler_retries += 1
         marks *= 2
@@ -277,6 +284,116 @@ def profile_run(run, span_prefix, top: int = 12):
             "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
             "kernel_launches": len(kernels), "stages": stages,
             "group_ms": groups, "top_kernels_ms": top_ms(by_name, top)}
+
+
+# ---------------------------------------------------------------------------
+# chained calls: the probes' rows (scripts/profile_{device,winner_prims,...})
+# ---------------------------------------------------------------------------
+
+def chain_scalar(out) -> torch.Tensor:
+    """A 0-d False that depends on ``out``: its first tensor's first
+    element compared equal to NaN (one launch; False whatever the
+    element, NaN and infinities included)."""
+    from torch.utils._pytree import tree_flatten
+
+    leaf = next(t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor))
+    return leaf[(0,) * leaf.ndim].eq(float("nan"))
+
+
+def chain_into(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``x`` with the chain scalar ``c`` added in place to its first
+    element (one launch; x keeps its bits, c being False): the input of a
+    chained call that depends on the last call's output."""
+    x[(0,) * x.ndim].add_(c)
+    return x
+
+
+def chained(fn, inputs, k: int) -> torch.Tensor:
+    """``k`` calls ``fn(c, *inputs[i % len(inputs)])``, each given the
+    chain scalar of the last one's output (False for the first); returns
+    the last call's scalar."""
+    c = torch.zeros((), dtype=torch.bool, device=_device_of(inputs))
+    for i in range(k):
+        c = chain_scalar(fn(c, *inputs[i % len(inputs)]))
+    return c
+
+
+def _device_of(inputs) -> torch.device:
+    from torch.utils._pytree import tree_flatten
+
+    return next(t.device for t in tree_flatten(inputs)[0]
+                if isinstance(t, torch.Tensor))
+
+
+def chained_row(name: str, fn, inputs, k1: int, k2: int, reps: int = 3) -> dict:
+    """One probe row: ``fn(c, *xs)`` runs the op once on inputs ``xs``
+    (one tuple of ``inputs``, taken in turn) and feeds ``c``, the last
+    call's chain scalar, into one input through :func:`chain_into`.
+
+    - ``device_ms``: the summed duration of the device events of ``k2``
+      chained calls in one torch.profiler trace (``device_events``) over
+      k2; ``launches``: those events over k2 (the chain's two launches
+      a call included);
+    - ``host_slope_ms``: (t(k2) - t(k1)) / (k2 - k1), t(k) the median over
+      ``reps`` of the host clock around k chained calls and a
+      synchronize: what a call costs whichever of the host and the card
+      sets the pace, with the fixed costs cancelled; ``host_bound`` where
+      it exceeds ``device_ms``;
+    - ``bytes``: what ``utils.costs`` counts for one call (aten operands
+      and outputs, the hand kernels' formulas), and ``gb_per_s`` over
+      ``device_ms``. The counter counts L2 hits as traffic, so the rate
+      can read above the device memory's;
+    - ``wall_s``: the host seconds the row took, ``profiler_s`` of them in
+      its trace, and the trace's ``profiler_retries``."""
+    from robust_pose_tpu_torch.utils import costs
+
+    t_row, retries = time.perf_counter(), profiler_retries
+    with torch.no_grad():
+        chained(fn, inputs, 1)
+        with costs.count() as counter:
+            fn(torch.zeros((), dtype=torch.bool, device=_device_of(inputs)),
+               *inputs[0])
+        host = {}
+        for k in (k1, k2):
+            ts = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                chained(fn, inputs, k)
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+            host[k] = sorted(ts)[len(ts) // 2] * 1e3
+        t_prof = time.perf_counter()
+        ev = device_events(lambda: chained(fn, inputs, k2), reps=1)
+        t_prof = time.perf_counter() - t_prof
+    dev_ms = sum(e.time_range.elapsed_us() for e in ev) / k2 / 1e3
+    slope = (host[k2] - host[k1]) / (k2 - k1)
+    return {"name": name, "device_ms": dev_ms, "host_slope_ms": slope,
+            "host_ms": {f"k{k1}": host[k1], f"k{k2}": host[k2]},
+            "launches": len(ev) / k2, "bytes": counter.bytes,
+            "gb_per_s": counter.bytes / dev_ms / 1e6 if dev_ms > 0 else None,
+            "host_bound": slope > dev_ms, "wall_s": time.perf_counter() - t_row,
+            "profiler_s": t_prof, "profiler_retries": profiler_retries - retries}
+
+
+def chained_rows(specs, k1: int, k2: int) -> List[dict]:
+    """The ``chained_row`` of each (name, fn, inputs) of ``specs``, each
+    printed (``row_line``) as it comes."""
+    rows = []
+    for name, fn, inputs in specs:
+        rows.append(chained_row(name, fn, inputs, k1, k2))
+        print(row_line(rows[-1]), flush=True)
+    return rows
+
+
+def row_line(row: dict) -> str:
+    """A probe row as one printed line."""
+    gbs = row["gb_per_s"]
+    return (f"{row['name']:58s} {row['device_ms']:9.4f} device ms "
+            f"{row['host_slope_ms']:9.4f} host ms/call "
+            f"{row['launches']:7.1f} launches "
+            f"{'-' if gbs is None else f'{gbs:8.1f}'} GB/s"
+            + ("  host-bound" if row["host_bound"] else ""))
 
 
 def card_device(tool: str, device=None) -> torch.device:
