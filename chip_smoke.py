@@ -59,7 +59,11 @@ Phases, each printing one JSON line:
                   the card through the kernels and once on the CPU through
                   the plain versions (lookup "onthefly" on both: "auto"
                   takes "xla" on the CPU): poses, success flags and masks
-                  must agree.
+                  must agree, K1, K2 and the LM solve kernel launch; then
+                  the same without confidence weighting (conf_weighing
+                  False, as configuration/infer_f2f_nw.yaml sets it, from
+                  a checkpoint without the TinyUNet heads): the same
+                  checks, and the heads never run.
 4. main        -- production f2f at full width (512x640, T = 8, 12 GRU
                   iterations, 20 LM iterations, confidence heads, 3 UNet
                   levels, bf16 mixed precision), random seeded weights, the
@@ -87,7 +91,11 @@ Phases, each printing one JSON line:
 8. f2m_slice   -- frame-to-model tracking at 64x96 in f32 on the card and on
                   the CPU, with lookup "onthefly" (K1) and "grouped" (K7):
                   first frame, one step, one 3-frame window; poses, flags,
-                  surfel counts and rendered masks must agree. Then the
+                  surfel counts and rendered masks must agree; with
+                  "onthefly" for each surfel winner primitive (segsort,
+                  the default, scatter and sort), and on the card scatter
+                  and sort equal to segsort bit for bit (or within a
+                  repeated segsort run's spread, printed). Then the
                   pool's overflow redo with average_pts and surfel upscale
                   2: a 4-frame window that outgrows its bucket, integer
                   outputs equal bit for bit.
@@ -100,7 +108,12 @@ Phases, each printing one JSON line:
                   poses held against the default lookup's on the same
                   frames.
 10. f2m_profile -- one more f2m window under torch.profiler, by span
-                  (f2m_precompute, f2m_track.*, fuse_render).
+                  (f2m_precompute, f2m_track.*, fuse_render); then
+                  (f2m_winners) fresh estimators with the winner
+                  primitives segsort, scatter, sort and segsort again, 2
+                  windows each and 2 profiled: scatter and sort leave
+                  the same surfels and poses as segsort; FPS, busy ms and
+                  idle share of each (a measurement, not a claim).
 11. small_slice -- RAFT's small variant (radius-3 window, 7 x 7) at 64x96
                   in f32, card against CPU: the f2f path of phase slice
                   (lookup "onthefly": K1 at radius 3), then the training
@@ -128,8 +141,11 @@ Phases, each printing one JSON line:
                   CLI's run at 512x640 from 2048 x 1280 frames in memory
                   with --window 8 --device-preproc, weights through
                   save_checkpoint / load_checkpoint_any: infer_f2f.yaml
-                  (33 frames; K1, K2 and the LM solve counted a window)
-                  and infer_scared.yaml (17 frames, its own pool size),
+                  (33 frames; K1, K2 and the LM solve counted a window),
+                  infer_f2f_nw.yaml (the same without confidence
+                  weighting, a checkpoint without the heads; its FPS
+                  beside the weighted run's) and infer_scared.yaml (17
+                  frames, its own pool size),
                   one warm-up pass and one timed, each with FPS (host
                   clock around the loop, ending in a synchronize) beside
                   phase main's, stage means, ATE/RPE and launches. Then
@@ -207,7 +223,13 @@ Phases, each printing one JSON line:
                   that sum to the totals, and each kernel wrapper's
                   registered FLOPs and bytes at phase 2's shapes equal to
                   the numbers its bound is computed from (the K2 norm: its
-                  design's bytes, x read twice; its bound the floor).
+                  design's bytes, x read twice; its bound the floor); then
+                  robust_pose_tpu_torch.scripts.hlo_bytes for f2f (window
+                  8) and f2m (window 4, pool 4) with --measure-bw and the
+                  row's measured ms: naive bytes equal to the row's,
+                  0 < corrected <= naive, the corrected rows summing to
+                  their total, the copy rate at most 1.05 x 3.35e12 B/s;
+                  both utilizations.
 20. tools      -- the profile tools on the card: profile_trace (f2f, 2
                   windows; its groups' ms within 1 % of the busy ms),
                   profile_stages, profile_f2m, profile_encoder (B = 1 and
@@ -236,7 +258,8 @@ Phases, each printing one JSON line:
                   solve an f2f window; an f2m window its precompute and
                   loops), printed beside phase main's and f2m's FPS.
 
-Then one line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
+Then one line {"phase_seconds": ...} (each phase's seconds on the host
+clock), one line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 Every failed check raises: the script exits non-zero and prints no result.
 TF32 stays off throughout (f32 products and convolutions in full f32).
 """
@@ -1546,31 +1569,36 @@ def small_state_dict(model_cfg, seed):
     return sd
 
 
-def phase_slice(dev, small=False):
-    """64x96, f32, the same weights and frames on the card (kernels) and on
-    the CPU (plain versions); tolerances of tests/test_torch_port_slice.py.
-    ``small``: RAFT's small variant (K1 at radius 3, C = 128), the f2f half
-    of phase small_slice. Returns the card's model config and weights."""
+def head_calls(model):
+    """Count the TinyUNet confidence heads' forward calls: returns the
+    one-element count list."""
+    calls = [0]
+
+    def hook(*_):
+        calls[0] += 1
+    for head in (model.weight_head_2d, model.weight_head_3d):
+        head.register_forward_hook(hook)
+    return calls
+
+
+def slice_case(dev, what, model_cfg, slam, sd, K, frames):
+    """The f2f path at 64x96 from the same weights and frames on the card
+    (kernels) and on the CPU (plain versions): poses, success flags and
+    depth-valid masks agree; K1, K2 and the LM solve kernel launch on the
+    card (one solve a solve_pose call), none on the CPU; the TinyUNet
+    heads run exactly where ``slam`` weighs by confidence."""
     import torch
 
     from robust_pose_tpu_torch.slam.pose_estimator import PoseEstimator
 
-    h, w = 64, 96
-    model_cfg = {"image_shape": (h, w), "iters": 2, "lbgfs_iters": 5,
-                 "use_weights": True, "mixed_precision": False, "unet_levels": 1,
-                 "lookup": "onthefly",       # K1 on the card, its plain version here
-                 "small": small}
-    slam = {"frame2frame": True, "lbgfs_iters": 5, "conf_weighing": True,
-            "depth_clipping": [1, 250]}
-    K = np.array([[100.0, 0, w / 2], [0, 100.0, h / 2], [0, 0, 1.0]])
-    sd = small_state_dict(model_cfg, seed=11)
-    ls, rs = make_sequence(5, disparity=3, step=2, seed=5, h=h, w=w)
-    mask = np.ones((1, h, w, 1), bool)
+    h, w = model_cfg["image_shape"]
+    ls, rs, mask = frames
     res = {}
     for where in ("cuda", "cpu"):
         est = PoseEstimator(slam, K, 250.0, {"state_dict": sd,
                                             "config": {"model": model_cfg}},
                             (w, h), device=where if where == "cpu" else dev)
+        heads = head_calls(est.model)
         zero_launch_counts()
         est(ls[0], rs[0], mask)
         first_mask = est.frame.depth.cpu() < 249.999
@@ -1584,23 +1612,63 @@ def phase_slice(dev, small=False):
                       "first_valid": first_mask,
                       "carry_valid": est.frame.depth.cpu() < 249.999,
                       "niter": est.last_solver_iters.cpu(),
-                      "k1": launch_counts()["corr_window_lookup"]}
+                      "launches": launch_counts(), "solves": SOLVE_CALLS[0],
+                      "head_calls": heads[0]}
     c, p = res["cuda"], res["cpu"]
     dist = tangent_distance(c["poses"], p["poses"])
-    require(bool(p["succ"].any()), "slice: degenerate sequence, every frame failed")
-    require(torch.equal(c["succ"], p["succ"]), "slice: success flags differ")
+    lc = c["launches"]
+    require(bool(p["succ"].any()), f"{what}: degenerate sequence, every frame failed")
+    require(torch.equal(c["succ"], p["succ"]), f"{what}: success flags differ")
     require(torch.equal(c["first_valid"], p["first_valid"])
             and torch.equal(c["carry_valid"], p["carry_valid"]),
-            "slice: depth-valid masks differ")
-    require(dist <= 1e-4, f"slice: pose tangent distance {dist} > 1e-4")
-    require(c["k1"] > 0 and p["k1"] == 0, f"slice: K1 launches {c['k1']}, {p['k1']}")
-    emit({"phase": "small_slice" if small else "slice", "part": "f2f",
-          "shape": [h, w], "pose_tangent_dist": dist,
-          "k1_launches_cuda": c["k1"],
-          "tol": 1e-4, "success": c["succ"].tolist(),
-          "niter_cuda": c["niter"].tolist(), "niter_cpu": p["niter"].tolist(),
-          "valid_fraction": float(c["first_valid"].float().mean())})
-    return model_cfg, sd, slam, K, (ls, rs, mask)
+            f"{what}: depth-valid masks differ")
+    require(dist <= 1e-4, f"{what}: pose tangent distance {dist} > 1e-4")
+    require(lc["corr_window_lookup"] > 0 and lc["instance_norm"] > 0
+            and lc["lm_solve"] == c["solves"] > 0 and lc["normal_eq"] == 0
+            and not any(p["launches"].values()),
+            f"{what}: launches {lc} (card), {p['launches']} (CPU)")
+    weighted = slam["conf_weighing"]
+    require(all((r["head_calls"] > 0) == weighted for r in (c, p)),
+            f"{what}: TinyUNet head calls {c['head_calls']}, {p['head_calls']} "
+            f"with conf_weighing {weighted}")
+    return {"shape": [h, w], "conf_weighing": weighted, "pose_tangent_dist": dist,
+            "k1_launches_cuda": lc["corr_window_lookup"],
+            "k2_launches_cuda": lc["instance_norm"], "lm_solve_launches_cuda":
+            lc["lm_solve"], "head_calls_cuda": c["head_calls"],
+            "tol": 1e-4, "success": c["succ"].tolist(),
+            "niter_cuda": c["niter"].tolist(), "niter_cpu": p["niter"].tolist(),
+            "valid_fraction": float(c["first_valid"].float().mean())}
+
+
+def phase_slice(dev, small=False):
+    """64x96, f32, the same weights and frames on the card (kernels) and on
+    the CPU (plain versions); tolerances of tests/test_torch_port_slice.py.
+    Then (not ``small``) the same without confidence weighting
+    (``conf_weighing: False``, as configuration/infer_f2f_nw.yaml sets it:
+    the model runs with ``use_weights: False``) from a checkpoint without
+    the TinyUNet heads, as a JAX model built so has none. ``small``:
+    RAFT's small variant (K1 at radius 3, C = 128), the f2f half of phase
+    small_slice. Returns the card's model config and weights."""
+    h, w = 64, 96
+    model_cfg = {"image_shape": (h, w), "iters": 2, "lbgfs_iters": 5,
+                 "use_weights": True, "mixed_precision": False, "unet_levels": 1,
+                 "lookup": "onthefly",       # K1 on the card, its plain version here
+                 "small": small}
+    slam = {"frame2frame": True, "lbgfs_iters": 5, "conf_weighing": True,
+            "depth_clipping": [1, 250]}
+    K = np.array([[100.0, 0, w / 2], [0, 100.0, h / 2], [0, 0, 1.0]])
+    sd = small_state_dict(model_cfg, seed=11)
+    ls, rs = make_sequence(5, disparity=3, step=2, seed=5, h=h, w=w)
+    frames = (ls, rs, np.ones((1, h, w, 1), bool))
+    what = "small_slice" if small else "slice"
+    emit({"phase": what, "part": "f2f",
+          **slice_case(dev, what, model_cfg, slam, sd, K, frames)})
+    if not small:
+        no_heads = {k: v for k, v in sd.items() if not k.startswith("weight_head_")}
+        emit({"phase": what, "part": "f2f_nw",
+              **slice_case(dev, f"{what} nw", dict(model_cfg, use_weights=False),
+                           dict(slam, conf_weighing=False), no_heads, K, frames)})
+    return model_cfg, sd, slam, K, frames
 
 
 # ---------------------------------------------------------------------------
@@ -2695,6 +2763,60 @@ def f2m_pool_case(dev, model_cfg, sd, K, ls, rs, mask):
             "launches_cuda": lc}
 
 
+def f2m_slice_run(dev, where, model_cfg, slam, sd, K, frames):
+    """One f2m run at 64x96 of phase f2m_slice on ``where``: the first
+    frame, one per-frame step, then one window of 3 frames."""
+    import torch
+
+    from robust_pose_tpu_torch.slam.pose_estimator import PoseEstimator
+
+    h, w = model_cfg["image_shape"]
+    ls, rs, mask = frames
+    est = PoseEstimator(slam, K, 250.0, {"state_dict": sd, "config": {"model": model_cfg}},
+                        (w, h), device=dev if where == "cuda" else "cpu")
+    zero_launch_counts()
+    est(ls[0], rs[0], mask)
+    pose, _, _, _ = est(ls[1], rs[1], mask)
+    step = (pose.cpu(), est.success.cpu().reshape(1), est.get_last_frame().mask.cpu())
+    p, s = est.track_window(ls[2:5], rs[2:5], np.stack([mask] * 3))
+    return {"poses": torch.cat([step[0][None], p.cpu()]),
+            "succ": torch.cat([step[1], s.cpu()]),
+            "masks": [step[2], est._model_frame.mask.cpu()],
+            "n_active": est.scene.n_active, "winner": est.scene.cfg.winner,
+            "niter": est.last_solver_iters.cpu().tolist(),
+            "launches": launch_counts(), "solves": SOLVE_CALLS[0]}
+
+
+F2M_WINNERS = ("segsort", "scatter", "sort")   # segsort: the default
+
+
+def winner_spread(a, b):
+    """How far two f2m runs' outputs lie apart: pose tangent distance,
+    success flags that differ, |n_active| difference, and pixels of each
+    model-frame mask that differ; ``bits``: all of them equal bit for
+    bit (poses included)."""
+    import torch
+
+    flips = [int((x != y).sum()) for x, y in zip(a["masks"], b["masks"])]
+    return {"bits": (torch.equal(a["poses"], b["poses"])
+                     and torch.equal(a["succ"], b["succ"])
+                     and a["n_active"] == b["n_active"] and not any(flips)),
+            "pose_tangent_dist": tangent_distance(a["poses"], b["poses"]),
+            "success_flips": int((a["succ"] != b["succ"]).sum()),
+            "n_active_diff": abs(a["n_active"] - b["n_active"]), "mask_flips": flips}
+
+
+def within_spread(got, spread):
+    """``got`` (a winner_spread) is no farther than ``spread``: bit for bit
+    where the repeated run was, else no measure above the repeat's."""
+    if spread["bits"]:
+        return got["bits"]
+    return (got["pose_tangent_dist"] <= spread["pose_tangent_dist"]
+            and got["success_flips"] <= spread["success_flips"]
+            and got["n_active_diff"] <= spread["n_active_diff"]
+            and all(g <= s for g, s in zip(got["mask_flips"], spread["mask_flips"])))
+
+
 def phase_f2m_slice(dev):
     """f2m at 64x96 in f32, the same weights and frames on the card
     (kernels) and on the CPU (plain versions), with ``lookup`` "onthefly"
@@ -2704,10 +2826,14 @@ def phase_f2m_slice(dev):
     the rendered model-frame masks (the step's reference, the window's
     carried next reference) equal at >= 99.5 % of pixels: a surfel whose
     projection sits on a pixel boundary can fall on either side on the two
-    devices (flips are printed). Then ``f2m_pool_case``."""
+    devices (flips are printed). The onthefly case runs with each winner
+    primitive of the surfel map (segsort, the default, then scatter and
+    sort), each held to the CPU's run of the same winner; on the card,
+    segsort runs a second time (its run-to-run spread, printed), and
+    scatter and sort are held to segsort's run bit for bit (poses, success
+    flags, n_active, model-frame masks) where that repeat was, else within
+    its spread. Then ``f2m_pool_case``."""
     import torch
-
-    from robust_pose_tpu_torch.slam.pose_estimator import PoseEstimator
 
     h, w = 64, 96
     model_cfg = {"image_shape": (h, w), "iters": 2, "lbgfs_iters": 5,
@@ -2719,26 +2845,15 @@ def phase_f2m_slice(dev):
     sd = small_state_dict(model_cfg, seed=11)
     ls, rs = make_sequence(5, disparity=3, step=2, seed=5, h=h, w=w)
     mask = np.ones((1, h, w, 1), bool)
-    report = {}
-    for lookup in ("onthefly", "grouped"):
-        res = {}
-        for where in ("cuda", "cpu"):
-            est = PoseEstimator(slam, K, 250.0, {
-                "state_dict": sd, "config": {"model": dict(model_cfg, lookup=lookup)}},
-                (w, h), device=dev if where == "cuda" else "cpu")
-            zero_launch_counts()
-            est(ls[0], rs[0], mask)
-            pose, _, _, _ = est(ls[1], rs[1], mask)
-            step = (pose.cpu(), est.success.cpu().reshape(1),
-                    est.get_last_frame().mask.cpu())
-            p, s = est.track_window(ls[2:5], rs[2:5], np.stack([mask] * 3))
-            res[where] = {"poses": torch.cat([step[0][None], p.cpu()]),
-                          "succ": torch.cat([step[1], s.cpu()]),
-                          "masks": [step[2], est._model_frame.mask.cpu()],
-                          "n_active": est.scene.n_active,
-                          "niter": est.last_solver_iters.cpu().tolist(),
-                          "launches": launch_counts(), "solves": SOLVE_CALLS[0]}
-            del est
+    frames = (ls, rs, mask)
+    report, card = {}, {}
+    cases = [("onthefly", "segsort"), ("grouped", "segsort")] + [
+        ("onthefly", wn) for wn in F2M_WINNERS[1:]]
+    for lookup, winner in cases:
+        what = lookup if winner == "segsort" else f"{lookup} {winner}"
+        res = {where: f2m_slice_run(dev, where, dict(model_cfg, lookup=lookup),
+                                    dict(slam, winner=winner), sd, K, frames)
+               for where in ("cuda", "cpu")}
         c, p = res["cuda"], res["cpu"]
         dist = tangent_distance(c["poses"], p["poses"])
         flips = [int((a != b).sum()) for a, b in zip(c["masks"], p["masks"])]
@@ -2746,42 +2861,61 @@ def phase_f2m_slice(dev):
         lc = c["launches"]
         lookup_k = "grouped_lookup" if lookup == "grouped" else "corr_window_lookup"
         other_k = "corr_window_lookup" if lookup == "grouped" else "grouped_lookup"
-        require(bool(p["succ"].any()), f"f2m_slice {lookup}: every frame failed")
-        require(torch.equal(c["succ"], p["succ"]), f"f2m_slice {lookup}: success flags")
-        require(dist <= 1e-4, f"f2m_slice {lookup}: pose tangent distance {dist}")
+        require(c["winner"] == p["winner"] == winner,
+                f"f2m_slice {what}: winner {c['winner']}, {p['winner']}")
+        require(bool(p["succ"].any()), f"f2m_slice {what}: every frame failed")
+        require(torch.equal(c["succ"], p["succ"]), f"f2m_slice {what}: success flags")
+        require(dist <= 1e-4, f"f2m_slice {what}: pose tangent distance {dist}")
         require(abs(c["n_active"] - p["n_active"]) <= 0.005 * p["n_active"],
-                f"f2m_slice {lookup}: n_active {c['n_active']} vs {p['n_active']}")
-        require(agree >= 0.995, f"f2m_slice {lookup}: model-frame masks {flips}")
+                f"f2m_slice {what}: n_active {c['n_active']} vs {p['n_active']}")
+        require(agree >= 0.995, f"f2m_slice {what}: model-frame masks {flips}")
         require(lc[lookup_k] > 0 and lc[other_k] == 0 and lc["normal_eq"] == 0
                 and lc["lm_solve"] == c["solves"] > 0
                 and lc["instance_norm"] > 0 and lc["instance_norm_stats"] == 0,
-                f"f2m_slice {lookup}: {lc}")
-        require(not any(p["launches"].values()), f"f2m_slice {lookup}: CPU launches")
-        report[lookup] = {"pose_tangent_dist": dist, "success": c["succ"].tolist(),
-                          "n_active_cuda": c["n_active"], "n_active_cpu": p["n_active"],
-                          "mask_flips": flips, "launches_cuda": lc,
-                          "niter_cuda": c["niter"], "niter_cpu": p["niter"]}
+                f"f2m_slice {what}: {lc}")
+        require(not any(p["launches"].values()), f"f2m_slice {what}: CPU launches")
+        report[what.replace(" ", "_")] = {
+            "pose_tangent_dist": dist, "success": c["succ"].tolist(),
+            "n_active_cuda": c["n_active"], "n_active_cpu": p["n_active"],
+            "mask_flips": flips, "launches_cuda": lc,
+            "niter_cuda": c["niter"], "niter_cpu": p["niter"]}
+        if lookup == "onthefly":
+            card[winner] = c
+    # the card's own run-to-run spread, then each winner against segsort
+    repeat = f2m_slice_run(dev, "cuda", dict(model_cfg, lookup="onthefly"),
+                           dict(slam, winner="segsort"), sd, K, frames)
+    spread = winner_spread(card["segsort"], repeat)
+    against = {wn: winner_spread(card["segsort"], card[wn]) for wn in F2M_WINNERS[1:]}
+    for wn, got in against.items():
+        require(within_spread(got, spread),
+                f"f2m_slice {wn}: against segsort on the card {got}, "
+                f"segsort's own spread {spread}")
     pool = f2m_pool_case(dev, dict(model_cfg, lookup="onthefly"), sd, K, ls, rs,
                          mask)
     emit({"phase": "f2m_slice", "shape": [h, w], "tol": {
         "pose": 1e-4, "n_active_rel": 0.005, "mask_agreement": 0.995}, **report,
+        "winners_on_card": {"segsort_repeat_spread": spread,
+                            "against_segsort": against},
         "pool_redo": pool})
 
 
-def f2m_slam():
-    """configuration/infer_scared.yaml's SLAM settings, read from the file,
-    with the pool pre-sized to F2M_POOL_FRAMES frames (map_capacity =
-    initial_bucket) and the segsort winner, as bench.py's f2m cell does."""
+def f2m_slam(winner="segsort"):
+    """configuration/infer_scared.yaml's SLAM settings as bench.py's f2m
+    cell takes them (``bench.f2m_slam``: the pool pre-sized to
+    F2M_POOL_FRAMES frames, map_capacity = initial_bucket), held to the
+    file, with the winner primitive ``winner`` (the default: segsort)."""
+    from robust_pose_tpu_torch.scripts import bench
     from robust_pose_tpu_torch.utils.config import read_yaml
 
     y = read_yaml("configuration/infer_scared.yaml")["slam"]
-    require(y["frame2frame"] is False and y["lbgfs_iters"] == 100
-            and y["conf_weighing"] is True and y["average_pts"] is False
-            and y["dist_thr"] == 0.05, f"infer_scared.yaml changed: {y}")
-    slam = {k: y[k] for k in ("frame2frame", "lbgfs_iters", "conf_weighing",
-                              "depth_clipping", "dist_thr", "average_pts")}
+    slam = bench.f2m_slam(F2M_POOL_FRAMES, winner)
+    keys = ("frame2frame", "lbgfs_iters", "conf_weighing", "depth_clipping",
+            "dist_thr", "average_pts")
     cap = F2M_POOL_FRAMES * H * W
-    slam.update(map_capacity=cap, initial_bucket=cap, winner="segsort")
+    require((bench.H, bench.W) == (H, W) and all(slam[k] == y[k] for k in keys)
+            and slam["map_capacity"] == slam["initial_bucket"] == cap
+            and slam["winner"] == winner,
+            f"infer_scared.yaml {y} against bench.f2m_slam {slam}")
     return slam
 
 
@@ -2803,7 +2937,8 @@ def phase_f2m(dev, smi):
     timed windows with the launch counters set to 0 just before and read
     just after; then one timed window with lookup "grouped" (K7) after one
     warm-up window, against a default-lookup estimator on the same frames;
-    then one window under the profiler (f2m_profile)."""
+    then one window under the profiler (f2m_profile); then the winner
+    primitives side by side (f2m_winners)."""
     import torch
 
     slam = f2m_slam()
@@ -2899,7 +3034,102 @@ def phase_f2m(dev, smi):
           "solve_span": solve_span(prof, "f2m_track.solve", T_WINDOW, {
               "device_ms": [321.1, 461.8], "kernel_ms": [18.3, 18.6],
               "launches": 12884})})
+    del est
+    torch.cuda.empty_cache()
+    f2m_winners(dev, smi, sd, (ls[0], rs[0], mask1), windows, masks)
     return launches, g_launches
+
+
+F2M_WINNER_WINDOWS = 2        # phase f2m's runs by winner: 2 timed windows
+
+
+def f2m_winner_run(dev, sd, winner, first, windows, masks):
+    """A fresh f2m estimator with the winner primitive ``winner``: the
+    first frame, F2M_WINNER_WINDOWS windows timed by the host clock (ended
+    by a synchronize), the pool read, then as many more windows, each under
+    the profiler (busy ms, idle share, kernel ms by stage)."""
+    import torch
+
+    est, _ = production_estimator(dev, True, state_dict=sd, slam=f2m_slam(winner))
+    est(*first)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    poses, succ = [], []
+    for l, r in windows[:F2M_WINNER_WINDOWS]:
+        p, s = est.track_window(l, r, masks)
+        poses.append(p)
+        succ.append(s)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    launches["solve_pose_calls"] = SOLVE_CALLS[0]
+    st = est.scene.state
+    run = {"winner": est.scene.cfg.winner, "poses": torch.cat(poses).cpu(),
+           "succ": torch.cat(succ).cpu(), "n_active": est.scene.n_active,
+           "hi": int(st.hi), "n_dropped": int(st.n_dropped),
+           "pool": [t.cpu() for t in (st.active, st.opts, st.conf, st.t_created)],
+           "masks": [est._model_frame.mask.cpu()], "seconds": dt,
+           "fps": F2M_WINNER_WINDOWS * T_WINDOW / dt, "launches": launches}
+    run["profiles"] = []
+    for l, r in windows[F2M_WINNER_WINDOWS:2 * F2M_WINNER_WINDOWS]:
+        prof = profile_run(lambda: est.track_window(l, r, masks),
+                           ("f2m_", "fuse_render"))
+        run["profiles"].append({
+            **{k: prof.get(k) for k in ("wall_ms", "device_busy_ms", "idle_share",
+                                        "kernel_launches")},
+            "stage_kernel_ms": {k: v["kernel_ms"]
+                                for k, v in prof.get("stages", {}).items()}})
+    del est
+    torch.cuda.empty_cache()
+    return run
+
+
+def f2m_winners(dev, smi, sd, first, windows, masks):
+    """Phase f2m by winner primitive, after segsort's runs: fresh estimators
+    (phase f2m's weights and frames) with segsort, scatter, sort and
+    segsort again (its run-to-run spread), each F2M_WINNER_WINDOWS windows
+    at the 4-frame pool, then as many profiled windows. scatter and sort must
+    leave the same surfels (the pool's active slots, points, confidences,
+    creation ticks, n_active, hi, n_dropped) and poses as segsort, bit for
+    bit where segsort's repeat was, else within its spread. Prints each
+    run's FPS, busy ms and idle share: a measurement, not a claim."""
+    import torch
+
+    runs = [f2m_winner_run(dev, sd, wn, first, windows, masks)
+            for wn in F2M_WINNERS + ("segsort",)]
+    ref, repeat = runs[0], runs[-1]
+
+    def pool_equal(a, b):
+        return (all(torch.equal(x, y) for x, y in zip(a["pool"], b["pool"]))
+                and (a["hi"], a["n_dropped"]) == (b["hi"], b["n_dropped"]))
+
+    spread = winner_spread(ref, repeat)
+    spread["pool_bits"] = pool_equal(ref, repeat)
+    rows = []
+    for run, wn in zip(runs, F2M_WINNERS + ("segsort",)):
+        require(run["winner"] == wn, f"f2m winners: ran {run['winner']} for {wn}")
+        require(bool(torch.isfinite(run["poses"]).all()), f"f2m {wn}: non-finite poses")
+        lc = run["launches"]
+        require(lc["lm_solve"] == lc["solve_pose_calls"] > 0 and lc["normal_eq"] == 0,
+                f"f2m {wn}: launches {lc}")
+        got = winner_spread(ref, run)
+        got["pool_bits"] = pool_equal(ref, run)
+        if run is not ref and run is not repeat:
+            require(within_spread(got, spread) and (got["pool_bits"] or not spread["pool_bits"]),
+                    f"f2m {wn}: against segsort {got}, segsort's own spread {spread}")
+        rows.append({"winner": wn, "fps": run["fps"], "seconds": run["seconds"],
+                     "busy_ms": [p["device_busy_ms"] for p in run["profiles"]],
+                     "idle_share": [p["idle_share"] for p in run["profiles"]],
+                     "profiled_windows": run["profiles"], "n_active": run["n_active"],
+                     "success_rate": float(run["succ"].float().mean()),
+                     "against_segsort": got,
+                     "launches_per_window": {k: v / F2M_WINNER_WINDOWS
+                                             for k, v in lc.items() if v}})
+    emit({"phase": "f2m_winners", "card": smi, "shape": [H, W], "window": T_WINDOW,
+          "windows": F2M_WINNER_WINDOWS, "pool_frames": F2M_POOL_FRAMES,
+          "segsort_repeat_spread": spread, "runs": rows})
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3104,6 +3334,43 @@ def phase_roofline(dev, smi):
         del c
     emit({"phase": "roofline", "card": smi, "rows": rows, "second_count": again,
           "kernel_costs": kernel_costs(dev), "seconds": time.perf_counter() - t0})
+    for r, (path, window) in zip(rows, (("f2f", T_WINDOW), ("f2m", roofline.F2M_WINDOW))):
+        emit({"phase": "roofline", "part": "hlo_bytes", "card": smi,
+              **hlo_bytes_row(r, path, window)})
+
+
+def hlo_bytes_row(row, path, window):
+    """robust_pose_tpu_torch.scripts.hlo_bytes on the card for ``path``
+    (``window`` frames; f2m: the pool as large, 4 frames as roofline's),
+    with --measure-bw and --frame-ms at the roofline ``row``'s measured ms:
+    its naive bytes equal the row's counted bytes, 0 < corrected <= naive,
+    the corrected rows sum to the corrected total, and the measured copy
+    rate is finite, above 0 and at most 1.05 x 3.35e12 B/s. Returns the
+    figures (the by-op tables: the 12 ops with the most corrected bytes)."""
+    from robust_pose_tpu_torch.scripts import hlo_bytes
+
+    t0 = time.perf_counter()
+    out, printed = captured(hlo_bytes.main, [
+        "--path", path, "--window", str(window), "--top", "12", "--measure-bw",
+        "--frame-ms", repr(row["measured_ms_per_frame"])])
+    print("\n".join(printed.splitlines()[:-1]), flush=True)
+    naive, corr, bw = out["naive_bytes"], out["corrected_bytes"], out["measured_bytes_per_s"]
+    require(naive == row["bytes"], f"hlo_bytes {path}: naive {naive} against the "
+            f"roofline's {row['bytes']} counted bytes")
+    require(0 < corr <= naive and all(b <= out["by_op_naive"][op][1]
+                                      for op, (b, _) in out["by_op_corrected"].items()),
+            f"hlo_bytes {path}: corrected {corr}, naive {naive}")
+    require(sum(b for b, _ in out["by_op_corrected"].values()) == corr
+            and sum(out["by_span_corrected"].values()) == corr,
+            f"hlo_bytes {path}: corrected rows do not sum to {corr}")
+    require(np.isfinite(bw) and 0 < bw <= 1.05 * costs.HBM_BYTES_PER_S,
+            f"hlo_bytes {path}: measured copy rate {bw} B/s")
+    top = sorted(out["by_op_corrected"].items(), key=lambda kv: -kv[1][0])[:12]
+    return {**{k: v for k, v in out.items() if not k.startswith("by_op")},
+            "by_op_corrected_top": {op: [b, out["by_op_naive"][op][1], calls]
+                                    for op, (b, calls) in top},
+            "corrected_over_naive": corr / naive,
+            "seconds": time.perf_counter() - t0}
 
 
 def phase_tools(dev, smi):
@@ -3433,13 +3700,16 @@ def count_windows(record, last=None):
     return lambda: setattr(PE, "track_window", inner)
 
 
-def cli_run(dev, cfg_path, n_frames, rectify, seed, extra=(), last=None):
+def cli_run(dev, cfg_path, n_frames, rectify, seed, extra=(), last=None,
+            use_weights=True):
     """The port's CLI ``run`` (robust_pose_tpu_torch.scripts.
     infer_trajectory) on ``cfg_path`` as read, ``--window 8
     --device-preproc --device cuda`` and the flags ``extra``, over
     ``n_frames`` decode-scale frames from memory, weights through
-    save_checkpoint / load_checkpoint_any: one warm-up pass, then the timed
-    pass with the launch counters set to 0 just before and read just
+    save_checkpoint / load_checkpoint_any (``use_weights`` False: a model
+    config without confidence heads and a checkpoint without the TinyUNet
+    weights, as a JAX model built so has none): one warm-up pass, then the
+    timed pass with the launch counters set to 0 just before and read just
     after; the last window's outputs kept in ``last`` where given. Returns
     what it measured."""
     import contextlib
@@ -3462,10 +3732,11 @@ def cli_run(dev, cfg_path, n_frames, rectify, seed, extra=(), last=None):
     calib = {"intrinsics": {"left": PRODUCTION_K}, "bf": PRODUCTION_BF,
              "img_size": (W, H)}
     with tempfile.TemporaryDirectory() as root:
-        model_cfg = production_model_cfg()
-        save_checkpoint(os.path.join(root, "ckpt"),
-                        production_weights(dev, model_cfg),
-                        {"model": model_cfg})
+        model_cfg = dict(production_model_cfg(), use_weights=use_weights)
+        sd = production_weights(dev, model_cfg)
+        if not use_weights:
+            sd = {k: v for k, v in sd.items() if not k.startswith("weight_head_")}
+        save_checkpoint(os.path.join(root, "ckpt"), sd, {"model": model_cfg})
         write_groundtruth(root, n_frames)
         for attempt in ("warm-up", "timed"):
             args = cli.build_parser().parse_args([
@@ -3671,10 +3942,30 @@ def viewer_runs(dev):
                               "ms": cuda_time_ms(readback, reps=10)}}
 
 
+def cli_f2f_launches(run, what):
+    """A CLI f2f run's launches: CLI_F2F_FRAMES frames, a window each of 8
+    after the first: 12 K1 lookups, 15 K2 norms and one LM solve a
+    window, no K2 statistics and no K3 build from Python. Returns one
+    window's."""
+    n_win = (CLI_F2F_FRAMES - 1) // T_WINDOW
+    lc = run["launches"]
+    require(len(run["windows"]) == n_win, f"{what}: {len(run['windows'])} windows")
+    for w in run["windows"]:
+        require(w["corr_window_lookup"] == 12 and w["instance_norm"] == 15
+                and w["instance_norm_stats"] == 0
+                and w["lm_solve"] == 1 and w["normal_eq"] == 0,
+                f"{what}: window launches {w}")
+    require(lc["lm_solve"] == n_win and lc["normal_eq"] == 0, f"{what}: launches {lc}")
+    return {k: run["windows"][0][k] for k in (
+        "corr_window_lookup", "instance_norm", "lm_solve")}
+
+
 def phase_cli(dev, smi):
     """The port's trajectory-inference CLI at full width: DevicePreproc
-    card against CPU; ``run`` on infer_f2f.yaml (CLI_F2F_FRAMES frames:
-    K1, K2 and the LM solve counted a window) and on infer_scared.yaml
+    card against CPU; ``run`` on infer_f2f.yaml and on infer_f2f_nw.yaml
+    (no confidence weighting, a checkpoint without the TinyUNet heads;
+    its FPS beside the weighted run's), CLI_F2F_FRAMES frames each, K1, K2
+    and the LM solve counted a window, and on infer_scared.yaml
     (CLI_F2M_FRAMES frames, its own pool size), each beside phase main's
     FPS of this run; then the scenario CLI's row loop (scenario_rows) and
     the CLI with a viewer (viewer_runs)."""
@@ -3682,29 +3973,25 @@ def phase_cli(dev, smi):
 
     t0 = time.perf_counter()
     pre = preproc_check(dev)
-    f2f = cli_run(dev, "configuration/infer_f2f.yaml", CLI_F2F_FRAMES,
-                  SmoothMaps(), seed=31)
-    n_win = (CLI_F2F_FRAMES - 1) // T_WINDOW
-    lc = f2f["launches"]
-    require(len(f2f["windows"]) == n_win, f"cli f2f: {len(f2f['windows'])} windows")
-    for w in f2f["windows"]:
-        require(w["corr_window_lookup"] == 12 and w["instance_norm"] == 15
-                and w["instance_norm_stats"] == 0
-                and w["lm_solve"] == 1 and w["normal_eq"] == 0,
-                f"cli f2f: window launches {w}")
-    one_solve_a_call(lc, "cli f2f")
-    require(lc["lm_solve"] == n_win, f"cli f2f: launches {lc}")
-    per_window = {k: f2f["windows"][0][k] for k in (
-        "corr_window_lookup", "instance_norm", "lm_solve")}
     emit({"phase": "cli", "part": "preproc", "card": smi,
           "decode": [DECODE_H, DECODE_W], "out": [H, W], "tol": PREPROC_TOL,
           **pre})
-    emit({"phase": "cli", "part": "f2f", "card": smi, "shape": [H, W],
-          "config": "configuration/infer_f2f.yaml", "window": T_WINDOW,
-          "launches_per_window": per_window,
-          "main_fps": MAIN_FPS.get("main"),
-          **{k: v for k, v in f2f.items() if k != "windows"}})
-    torch.cuda.empty_cache()
+    runs, per_window = {}, {}
+    for part, cfg_path, use_weights in (
+            ("f2f", "configuration/infer_f2f.yaml", True),
+            ("f2f_nw", "configuration/infer_f2f_nw.yaml", False)):
+        run = cli_run(dev, cfg_path, CLI_F2F_FRAMES, SmoothMaps(), seed=31,
+                      use_weights=use_weights)
+        one_solve_a_call(run["launches"], f"cli {part}")
+        runs[part], per_window[part] = run, cli_f2f_launches(run, f"cli {part}")
+        emit({"phase": "cli", "part": part, "card": smi, "shape": [H, W],
+              "config": cfg_path, "window": T_WINDOW,
+              "launches_per_window": per_window[part],
+              "main_fps": MAIN_FPS.get("main"),
+              **({"weighted_cli_fps": runs["f2f"]["fps"]} if part != "f2f" else {}),
+              **{k: v for k, v in run.items() if k != "windows"}})
+        torch.cuda.empty_cache()
+    f2f = runs["f2f"]
 
     f2m = cli_run(dev, "configuration/infer_scared.yaml", CLI_F2M_FRAMES,
                   PseudoShift(), seed=41)
@@ -3729,7 +4016,7 @@ def phase_cli(dev, smi):
           "frames": CLI_F2F_FRAMES, "cli_f2f_fps": f2f["fps"],
           "main_fps": MAIN_FPS.get("main"), **viewer_runs(dev)})
     torch.cuda.empty_cache()
-    return per_window
+    return per_window["f2f"]
 
 
 # ---------------------------------------------------------------------------
@@ -4840,26 +5127,35 @@ def main():
         # every probe at its defaults; no result line
         phase_probes(dev, smi, PROBES_FULL)
         return 0
-    kernels = phase_kernels(dev)
-    phase_slice(dev)
-    launches = phase_main(dev, smi)
-    phase_train_slice(dev)
-    train = phase_train(dev, smi)
-    phase_f2m_slice(dev)
-    _, f2m_grouped = phase_f2m(dev, smi)
-    small_case = phase_slice(dev, small=True)
-    phase_train_slice(dev, small=True)
-    small_f2f, small_train = phase_small(dev, smi)
-    phase_checkpoints(dev, *small_case)
-    phase_cli(dev, smi)
-    phase_ops_tail(dev)
-    phase_train_cli(dev, smi)
-    phase_ddp(dev, smi)
-    phase_parity(dev, smi)
-    phase_roofline(dev, smi)
-    phase_tools(dev, smi)
-    phase_probes(dev, smi)
-    phase_bench(dev, smi)
+    seconds = {}
+
+    def timed(name, phase, *args, **kw):
+        t0 = time.perf_counter()
+        out = phase(*args, **kw)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    kernels = timed("kernels", phase_kernels, dev)
+    timed("slice", phase_slice, dev)
+    launches = timed("main", phase_main, dev, smi)
+    timed("train_slice", phase_train_slice, dev)
+    train = timed("train", phase_train, dev, smi)
+    timed("f2m_slice", phase_f2m_slice, dev)
+    _, f2m_grouped = timed("f2m", phase_f2m, dev, smi)
+    small_case = timed("small_slice", phase_slice, dev, small=True)
+    timed("small_slice_train", phase_train_slice, dev, small=True)
+    small_f2f, small_train = timed("small", phase_small, dev, smi)
+    timed("checkpoints", phase_checkpoints, dev, *small_case)
+    timed("cli", phase_cli, dev, smi)
+    timed("ops_tail", phase_ops_tail, dev)
+    timed("train_cli", phase_train_cli, dev, smi)
+    timed("ddp", phase_ddp, dev, smi)
+    timed("parity", phase_parity, dev, smi)
+    timed("roofline", phase_roofline, dev, smi)
+    timed("tools", phase_tools, dev, smi)
+    timed("probes", phase_probes, dev, smi)
+    timed("bench", phase_bench, dev, smi)
+    emit({"phase_seconds": seconds, "total": sum(seconds.values())})
     # each kernel's launches on its own path: K1-K3 and the K2 norm in the
     # f2f main path (K3: the LM solve kernel, one launch a window, every
     # build inside), K4-K5 and K2's statistics entry (the norms' backward)

@@ -53,19 +53,19 @@ F2F_SLAM = {
 }
 
 
-def f2m_slam(pool_frames=None):
+def f2m_slam(pool_frames=None, winner=None):
     """Frame-to-model, configuration/infer_scared.yaml (100 LM
     iterations). The pool is pre-sized to its cap, ``pool_frames`` frames
     (F2M_POOL_FRAMES): the synthetic sequence appends at every frame
     (random-weight confidences defeat the depth-match test), so every pool
-    pass costs the full capacity."""
+    pass costs the full capacity. ``winner``: the packed-winner primitive
+    (slam/surfel_map.py), default $BENCH_F2M_WINNER, else segsort."""
     cap = (F2M_POOL_FRAMES if pool_frames is None else pool_frames) * H * W
     return {
         "frame2frame": False, "lbgfs_iters": 100, "conf_weighing": True,
         "depth_clipping": [1, 250], "dist_thr": 0.05, "average_pts": False,
         "map_capacity": cap, "initial_bucket": cap,
-        # the packed-winner primitive (slam/surfel_map.py), default segsort
-        "winner": os.environ.get("BENCH_F2M_WINNER", "segsort"),
+        "winner": winner or os.environ.get("BENCH_F2M_WINNER", "segsort"),
     }
 
 

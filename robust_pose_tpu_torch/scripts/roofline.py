@@ -1,6 +1,6 @@
 """FLOP / byte roofline of the port's hot paths on one CUDA card (port of
-``scripts/roofline.py``; ``--by-op`` also does ``scripts/hlo_bytes.py``'s
-job, the per-op attribution of the bytes).
+``scripts/roofline.py``; ``--by-op`` lists the per-op attribution of the
+naive bytes, ``scripts/hlo_bytes.py`` that of the corrected ones).
 
 For each path it runs the production code (``scripts/bench.py``'s
 estimator, the same ``track_window`` the bench times) once under
@@ -28,8 +28,10 @@ microbatches, RAFT live through the lane-wise lookup: K4/K5; per sample).
 
 Byte model, and its limit: each op's operands and outputs are traffic
 (``utils/costs``), so a tensor that stays in the 50 MB L2 between two ops
-counts twice and ``hbm_util_pct`` can read above 100 %. Every number is
-printed unrounded, with the card's name and power limit.
+counts twice and ``hbm_util_pct`` can read above 100 %. The ``_corrected``
+keys read the same run in the corrected model (gathers read what they
+emit, in-place scatters touch what they index; ``scripts/hlo_bytes.py``).
+Every number is printed unrounded, with the card's name and power limit.
 
     python -m robust_pose_tpu_torch.scripts.roofline [--train] [--skip-f2m] \\
         [--window 8] [--windows 6] [--by-op 20] [--json rows.json] \\
@@ -63,11 +65,12 @@ def estimator(path, device, pool_frames=None):
     return bench.build_estimator(slam, device=device, lookup="onthefly")
 
 
-def count_window(path, device, window):
-    """One window of ``path`` ("f2f" or "f2m") under a counter, from a fresh
-    estimator after its first frame: the same work whenever it is called
-    (the same weights, frames and estimator state). Returns the Counter."""
-    est = estimator(path, device)
+def count_window(path, device, window, pool_frames=None):
+    """One window of ``path`` ("f2f" or "f2m", its pool of ``pool_frames``
+    frames, default the bench's) under a counter, from a fresh estimator
+    after its first frame: the same work whenever it is called (the same
+    weights, frames and estimator state). Returns the Counter."""
+    est = estimator(path, device, pool_frames)
     windows, masks = bench.start_stream(est, window, 1, SEED0[path])
     with costs.count() as c:
         est.track_window(*windows[0], masks)
@@ -136,6 +139,7 @@ def row(tag, counter, frames, seconds, card):
     b = counter.bytes / frames
     t_c = counter.compute_s() / frames
     t_h = b / costs.HBM_BYTES_PER_S
+    b_corr = counter.bytes_corrected / frames
     out = {"path": tag, "gflops_per_frame": f / 1e9, "hbm_gb_per_frame": b / 1e9,
            "measured_ms_per_frame": None if seconds is None else seconds * 1e3,
            "compute_bound_ms": t_c * 1e3, "hbm_bound_ms": t_h * 1e3,
@@ -145,11 +149,15 @@ def row(tag, counter, frames, seconds, card):
            "flops": counter.flops, "bytes": counter.bytes,
            "gflops_per_frame_by_dtype": {k: v[0] / frames / 1e9
                                          for k, v in sorted(counter.by_dtype.items())
-                                         if v[0]}}
+                                         if v[0]},
+           "hbm_gb_per_frame_corrected": b_corr / 1e9,
+           "hbm_util_pct_corrected": None}
     if seconds is not None:
         out.update(mfu_pct=100.0 * f / seconds / costs.BF16_FLOPS,
                    hbm_util_pct=100.0 * b / seconds / costs.HBM_BYTES_PER_S,
-                   overhead_ms=(seconds - max(t_c, t_h)) * 1e3)
+                   overhead_ms=(seconds - max(t_c, t_h)) * 1e3,
+                   hbm_util_pct_corrected=100.0 * b_corr / seconds
+                   / costs.HBM_BYTES_PER_S)
     return out
 
 

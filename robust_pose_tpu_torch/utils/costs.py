@@ -6,12 +6,52 @@ aten op that runs inside it, it adds
 
 - FLOPs from ``torch.utils.flop_counter``'s registry (convolution, mm,
   bmm, addmm, baddbmm and their backwards; every other op counts none);
-- bytes: the tensor operands read plus the outputs written. An operand
-  broadcast with a zero stride counts its distinct elements once. View,
-  alias and factory ops, which read nothing, and metadata queries, which
-  write no tensor, count none; an op that only
-  writes its first operand (``copy_``, ``zero_``, ``fill_``, the random
-  fills) counts that operand as written, not read.
+- bytes in two models, counted from the same dispatch.
+
+**The naive model** (``Counter.bytes``, ``by_op``, ``by_dtype``,
+``by_span``, ``top``): the tensor operands read plus the outputs written.
+An operand broadcast with a zero stride counts its distinct elements once.
+View, alias and factory ops, which read nothing, and metadata queries,
+which write no tensor, count none; an op that only writes its first
+operand (``copy_``, ``zero_``, ``fill_``, the random fills) counts that
+operand as written, not read.
+
+**The corrected model** (``Counter.bytes_corrected``, ``corrected_by_op``,
+``corrected_by_span``, ``corrected_rows``), the eager counterpart of
+``scripts/hlo_bytes.py``'s rules for XLA's gathers and scatters:
+
+- a gather (``index`` with tensor indices, ``index_select``, ``gather``,
+  ``take``, ``embedding``; ``take_along_dim`` reaches ``gather``) reads
+  its index tensors and the elements it emits, at most its table's
+  distinct bytes (a gather that emits more than its table reads the table
+  once, as the kernel formulas read each input once), and writes its
+  output;
+- an in-place scatter (``scatter_``, ``scatter_add_``, ``scatter_reduce_``,
+  ``index_put_`` and ``_index_put_impl_``, ``index_add_``,
+  ``index_copy_``, ``index_fill_``) reads its indices and its updates at
+  the indexed shape, and reads and writes only the touched elements: the
+  indexed shape's element count times the base's element size, at most
+  the base's distinct bytes;
+- an out-of-place scatter (``scatter``, ``index_copy``, ``index_put``, ...)
+  keeps the naive charge: eager PyTorch copies the whole base before it
+  scatters, so the base read and the output written are what it moves
+  (XLA scatters into a donated buffer in place; here the two rules
+  differ);
+- every other op, hand kernels included, is charged as the naive model
+  charges it.
+
+Both rules are capped, so each op's corrected bytes are at most its naive
+bytes. Limits of both models, stated so the numbers are read as what they
+are: a tensor that stays in the card's 50 MB L2 between two ops is
+charged twice (so achieved rates against the device-memory peak can read
+above 100 %); bytes are counted below the card's 32-byte sector, so
+scattered 4-byte reads undercount; and a filling factory (``torch.full``
+over the surfel pool, ``slam/surfel_map.py``) writes memory but counts
+nothing.
+
+``corrected_rows`` is keyed by (span, op, the operands' dtypes and
+shapes) and holds [bytes, calls]: the call count is the eager counterpart
+of the JAX script's loop weight.
 
 Each entry is kept by op name, by dtype (``"tf32"`` for f32 products and
 convolutions that PyTorch runs on TF32 tensor cores) and by the innermost
@@ -26,11 +66,6 @@ kernel's contract needs, which ``chip_smoke.py`` also takes as each
 kernel's bound: each input read once, each output written once, and the
 operations on this call's inputs (the in-level taps of this call's
 windows, the LM builds this call's solve ran).
-
-Byte model, and its limit: each op's operands and outputs are traffic,
-so a tensor that stays in the card's 50 MB L2 between two ops is counted
-twice. Achieved rates against the device-memory peak can read above
-100 %.
 
 Peaks (H100 SXM data sheet, dense): bf16 989e12, TF32 495e12, f32 67e12
 (f64 34e12) operations a second; device memory 3.35e12 bytes a second.
@@ -75,6 +110,14 @@ _NO_TRAFFIC = {"_unsafe_view", "lift_fresh", "set_", "alias", "detach",
 _CONV = {"convolution", "_convolution", "cudnn_convolution",
          "convolution_overrideable", "_slow_conv2d_forward",
          "convolution_backward"}
+# the corrected model's gathers: (table, index tensors) read as emitted
+_GATHERS = {"index", "index_select", "gather", "take", "embedding"}
+# the corrected model's in-place scatters: (self, dim, index, src or value)
+# but the index_puts, (self, indices, values); the scatter_* index has the
+# indexed shape itself, the index_* ones index one dimension
+_SCATTERS = {"scatter_", "scatter_add_", "scatter_reduce_", "index_add_",
+             "index_copy_", "index_fill_", "index_put_", "_index_put_impl_"}
+_INDEX_PUTS = {"index_put_", "_index_put_impl_"}
 
 
 def dtype_key(dtype: torch.dtype) -> str:
@@ -90,9 +133,70 @@ def _distinct_bytes(t: Tensor) -> int:
     return n * t.element_size() if t.numel() else 0
 
 
+def _signature(tensors) -> str:
+    """The operands' dtypes and shapes, as ``f32[4096,8] int64[512]``."""
+    return " ".join(f"{dtype_key(t.dtype)}[{','.join(map(str, t.shape))}]"
+                    for t in tensors)
+
+
+def _indexed_numel(base: Tensor, indices) -> int:
+    """Elements of ``base[indices]`` (``indices`` a list of tensors or
+    None, as ``index_put_`` takes them): a bool mask counts its set
+    elements (a read of its data, as the op's own is), the integer
+    indices broadcast together, and every dimension no index covers
+    counts whole."""
+    shapes, free, dim = [], [], 0
+    for ix in indices:
+        if ix is None:
+            free.append(base.shape[dim])
+            dim += 1
+        elif ix.dtype in (torch.bool, torch.uint8):
+            shapes.append((int(ix.count_nonzero()),))
+            dim += ix.dim()
+        else:
+            shapes.append(tuple(ix.shape))
+            dim += 1
+    n = 1
+    for d in list(torch.broadcast_shapes(*shapes)) + free + list(base.shape[dim:]):
+        n *= d
+    return n
+
+
+def corrected_bytes(name: str, args, flat_in, flat_out, naive: int) -> int:
+    """The corrected model's bytes of one aten op (module docstring):
+    gathers read what they emit, in-place scatters touch what they index;
+    every other op its ``naive`` bytes."""
+    if name in _GATHERS:
+        table = flat_in[0]
+        out_bytes = sum(_distinct_bytes(t) for t in flat_out)
+        idx_bytes = sum(_distinct_bytes(t) for t in flat_in[1:]
+                        if not any(t is o for o in flat_out))
+        return idx_bytes + min(out_bytes, _distinct_bytes(table)) + out_bytes
+    if name in _SCATTERS:
+        base = args[0]
+        if name in _INDEX_PUTS:
+            index, upd = [t for t in args[1] if t is not None], args[2]
+            n = _indexed_numel(base, list(args[1]))
+        else:
+            dim, ix = args[1], args[2]
+            index, upd = [ix], args[3] if len(args) > 3 else None
+            n = ix.numel()
+            if not name.startswith("scatter") and base.dim():
+                n *= base.numel() // max(base.shape[dim], 1)
+        upd_bytes = (min(_distinct_bytes(upd), n * upd.element_size())
+                     if isinstance(upd, Tensor) else 0)
+        touched = min(n * base.element_size(), _distinct_bytes(base))
+        return (sum(_distinct_bytes(t) for t in index) + upd_bytes
+                + 2 * touched)
+    return naive
+
+
 class Counter:
     """FLOPs and bytes by op, by dtype and by span; ``flops`` and
-    ``bytes`` are the totals."""
+    ``bytes`` are the totals. The corrected byte model beside them:
+    ``bytes_corrected``, ``corrected_by_op`` ([bytes, calls]),
+    ``corrected_by_span`` and ``corrected_rows`` ([bytes, calls] by
+    (span, op, operand signature))."""
 
     def __init__(self):
         self.flops = 0
@@ -100,10 +204,19 @@ class Counter:
         self.by_op: Dict[str, list] = defaultdict(lambda: [0, 0, 0])
         self.by_dtype: Dict[str, list] = defaultdict(lambda: [0, 0])
         self.by_span: Dict[str, list] = defaultdict(lambda: [0, 0])
+        self.bytes_corrected = 0
+        self.corrected_by_op: Dict[str, list] = defaultdict(lambda: [0, 0])
+        self.corrected_by_span: Dict[str, int] = defaultdict(int)
+        self.corrected_rows: Dict[tuple, list] = defaultdict(lambda: [0, 0])
         self._suspended = 0
 
-    def add(self, name: str, flops: int, nbytes: int, dtype: str) -> None:
+    def add(self, name: str, flops: int, nbytes: int, dtype: str,
+            corrected: Optional[int] = None, signature: str = "") -> None:
+        """One op's FLOPs and naive bytes; ``corrected``: its corrected
+        bytes (default the naive ones), ``signature``: its operands."""
         flops, nbytes = int(flops), int(nbytes)
+        corrected = nbytes if corrected is None else int(corrected)
+        span_name = profiling.current_span() or ""
         self.flops += flops
         self.bytes += nbytes
         op = self.by_op[name]
@@ -113,9 +226,15 @@ class Counter:
         d = self.by_dtype[dtype]
         d[0] += flops
         d[1] += nbytes
-        s = self.by_span[profiling.current_span() or ""]
+        s = self.by_span[span_name]
         s[0] += flops
         s[1] += nbytes
+        self.bytes_corrected += corrected
+        for row in (self.corrected_by_op[name],
+                    self.corrected_rows[(span_name, name, signature)]):
+            row[0] += corrected
+            row[1] += 1
+        self.corrected_by_span[span_name] += corrected
 
     def compute_s(self) -> float:
         """Seconds the FLOPs take at least: each dtype's over its peak."""
@@ -134,6 +253,12 @@ class Counter:
         i = 1 if key == "bytes" else 0
         rows = sorted(self.by_op.items(), key=lambda kv: -kv[1][i])[:n]
         return [[k, f, b, c] for k, (f, b, c) in rows]
+
+    def top_corrected(self, n: int):
+        """The ``n`` (span, op, signature) rows with the most corrected
+        bytes: [span, op, signature, bytes, calls] rows."""
+        rows = sorted(self.corrected_rows.items(), key=lambda kv: -kv[1][0])[:n]
+        return [[sp, op, sig, b, c] for (sp, op, sig), (b, c) in rows]
 
 
 class _Mode(TorchDispatchMode):
@@ -173,7 +298,9 @@ class _Mode(TorchDispatchMode):
             tf32 = (torch.backends.cudnn.allow_tf32 if name in _CONV
                     else torch.backends.cuda.matmul.allow_tf32)
             dt = "tf32" if tf32 else dt
-        c.add(name, flops, nbytes, dt)
+        c.add(name, flops, nbytes, dt,
+              corrected_bytes(name, args, flat_in, flat_out, nbytes),
+              _signature(flat_in))
         return out
 
 
@@ -214,7 +341,8 @@ def kernel(name: str, formula, *args) -> None:
         return
     with suspended():
         flops, nbytes, dt = formula(*args)
-    c.add(name, flops, nbytes, dt)
+        sig = _signature(t for t in tree_flatten(args)[0] if isinstance(t, Tensor))
+    c.add(name, flops, nbytes, dt, signature=sig)
 
 
 def bound(nbytes: float, flops_by_dtype: Dict[str, float]):
