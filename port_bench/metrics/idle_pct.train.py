@@ -1,0 +1,6 @@
+"""Share of the traced slice's wall time in which no kernel ran, %."""
+
+
+def read(run):
+    tr = run["trace"]
+    return None if tr is None else 100.0 * (1.0 - tr.busy_s() / tr.wall_s)
