@@ -215,8 +215,8 @@ class PoseNet(nn.Module):
         """
         t = limgs.shape[0]
         # the spans name the window's four stages (read by the profile
-        # tools, chip_smoke.py and utils.costs); outside a profiler and a
-        # counter they cost a few microseconds each
+        # tools, chip_smoke.py, utils.costs and port_bench); with the
+        # profiler off each costs two clock reads and a ring append
         with span("infer_window.encode"):
             enc = self.flow.encode_fnet(torch.cat([limgs, rimgs]))
             fl, fr = enc[:t], enc[t:]

@@ -24,6 +24,7 @@ from robust_pose_tpu_torch.device import plain_or_cuda
 from robust_pose_tpu_torch.ops import _build
 from robust_pose_tpu_torch.ops.geometry import create_img_coords
 from robust_pose_tpu_torch.utils import costs
+from robust_pose_tpu_torch.utils.profiling import host_read
 
 Tensor = torch.Tensor
 
@@ -243,7 +244,7 @@ def lm_solve_plain(planes: Tensor, kvec: Tensor, loss_weight: Tensor, h: int,
     niter = torch.zeros((b,), dtype=torch.int32, device=dev)
 
     for _ in range(cfg.iters):
-        if cfg.early_exit and bool(done.all()):
+        if cfg.early_exit and host_read(done.all()):
             break
         niter = niter + (~done).int()
         H_t, g_t, cost_t = build(trial, planes, kvec, lw, h, w)

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from robust_pose_tpu_torch.utils.profiling import new_tensor
+
 Tensor = torch.Tensor
 
 
@@ -39,7 +41,7 @@ def quat_mul(q1: Tensor, q2: Tensor) -> Tensor:
 
 
 def quat_conj(q: Tensor) -> Tensor:
-    return q * q.new_tensor([-1.0, -1.0, -1.0, 1.0])
+    return q * new_tensor(q, [-1.0, -1.0, -1.0, 1.0])
 
 
 def quat_rotate(q: Tensor, p: Tensor) -> Tensor:

@@ -31,7 +31,7 @@ from robust_pose_tpu_torch.slam.surfel_map import (
     surfel_fuse_render,
     surfel_render,
 )
-from robust_pose_tpu_torch.utils.profiling import span
+from robust_pose_tpu_torch.utils.profiling import host_read, span
 
 Tensor = torch.Tensor
 
@@ -133,16 +133,18 @@ class PoseEstimator:
             limgs[:, 0], rimgs[:, 0], masks[:, 0], self.intrinsics,
             self.baseline * self.scale, frame.img, frame.depth * self.scale,
             frame.mask, frame.flow, self._feats)
-        rel, success = self._rel_check(out.pose)
-        pose = self.last_pose
-        poses = []
-        for r in rel:
-            pose = se3.normalize(se3.mul(pose, se3.inv(r[None])))
-            poses.append(pose)
-        fr_state = make_frame(limgs[-1], rimgs[-1],
-                              depth=out.depth2[-1:] / self.scale,
-                              mask=masks[-1], flow=out.stereo_flow2[-1:])
-        return pose, fr_state, out, torch.stack(poses), success
+        with span("track_window.chain"):
+            rel, success = self._rel_check(out.pose)
+            pose = self.last_pose
+            poses = []
+            for r in rel:
+                pose = se3.normalize(se3.mul(pose, se3.inv(r[None])))
+                poses.append(pose)
+            fr_state = make_frame(limgs[-1], rimgs[-1],
+                                  depth=out.depth2[-1:] / self.scale,
+                                  mask=masks[-1], flow=out.stereo_flow2[-1:])
+            poses = torch.stack(poses)
+        return pose, fr_state, out, poses, success
 
     # frame-to-model ---------------------------------------------------------
 
@@ -178,7 +180,7 @@ class PoseEstimator:
         frame = make_frame(limg, rimg, depth=d2 / self.scale, mask=mask,
                            flow=sf2)
         merged = not cfg.average_pts and cfg.upscale == 1
-        if bool(success):
+        if host_read(success):
             new_state, new_mf = self._fuse_and_render(state, frame, new_pose[0], cfg)
         elif merged:
             new_state, new_mf = state, model_frame
@@ -307,22 +309,24 @@ class PoseEstimator:
         :return: (poses (T, 1, 7), successes (T,) bool[, diagnostics])
         """
         assert self.frame is not None, "process the first frame via __call__"
-        limgs, rimgs, masks = self._nhwc(
-            self._tensor(limgs, torch.float32), self._tensor(rimgs, torch.float32),
-            self._tensor(masks, torch.bool), 2)
-        if not self.frame2frame:
-            return self._track_window_f2m(limgs, rimgs, masks, diagnostics)
-        pose, frame, out, poses, succ = self._window_step(limgs, rimgs, masks)
-        self.last_pose, self.frame, self._feats = pose, frame, out.feats
-        self.last_solver_iters = out.solver_iters
-        self.last_frame = self.frame
-        self.success = succ[-1]
-        if diagnostics:
-            diag = {"flow": out.flow.half(), "conf1": out.conf1.half(),
-                    "conf2": out.conf2.half(),
-                    "depth": (out.depth2 / self.scale).half()}
-            return poses, succ, diag
-        return poses, succ
+        with span("track_window"):
+            limgs, rimgs, masks = self._nhwc(
+                self._tensor(limgs, torch.float32),
+                self._tensor(rimgs, torch.float32),
+                self._tensor(masks, torch.bool), 2)
+            if not self.frame2frame:
+                return self._track_window_f2m(limgs, rimgs, masks, diagnostics)
+            pose, frame, out, poses, succ = self._window_step(limgs, rimgs, masks)
+            self.last_pose, self.frame, self._feats = pose, frame, out.feats
+            self.last_solver_iters = out.solver_iters
+            self.last_frame = self.frame
+            self.success = succ[-1]
+            if diagnostics:
+                diag = {"flow": out.flow.half(), "conf1": out.conf1.half(),
+                        "conf2": out.conf2.half(),
+                        "depth": (out.depth2 / self.scale).half()}
+                return poses, succ, diag
+            return poses, succ
 
     @torch.inference_mode()
     def __call__(self, limg, rimg, mask):

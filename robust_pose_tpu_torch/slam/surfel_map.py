@@ -42,6 +42,7 @@ from robust_pose_tpu_torch.ops.geometry import (
     project2image,
 )
 from robust_pose_tpu_torch.slam.frame import Frame, make_frame
+from robust_pose_tpu_torch.utils.profiling import host_read
 
 Tensor = torch.Tensor
 
@@ -544,8 +545,8 @@ class SurfelMap:
     @staticmethod
     def _counters(state):
         """(n_dropped, hi, active count) in one device-to-host copy."""
-        return tuple(torch.stack([state.n_dropped, state.hi,
-                                  state.active.sum(dtype=torch.int32)]).tolist())
+        return tuple(host_read(torch.stack([state.n_dropped, state.hi,
+                                            state.active.sum(dtype=torch.int32)])))
 
     def post_fuse(self, prev_state: SurfelState, redo_fn=None,
                   frames: int = 1) -> None:
@@ -563,7 +564,7 @@ class SurfelMap:
             return
 
         n_dropped, hi, n_active = self._counters(self.state)
-        new_drops = n_dropped - int(prev_state.n_dropped)
+        new_drops = n_dropped - host_read(prev_state.n_dropped)
         while new_drops > 0 and redo_fn is not None:
             _, hi_p, act_p = self._counters(prev_state)
             if hi_p - act_p > self._n // 4:
@@ -575,7 +576,7 @@ class SurfelMap:
                 break
             self.state = redo_fn(prev_state, self.cfg)
             n_dropped, hi, n_active = self._counters(self.state)
-            new_drops = n_dropped - int(prev_state.n_dropped)
+            new_drops = n_dropped - host_read(prev_state.n_dropped)
         if new_drops > 0 and not self._warned_overflow:
             warnings.warn(
                 f"surfel map overflow: {n_dropped} appends dropped at the "

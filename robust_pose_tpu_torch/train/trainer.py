@@ -62,7 +62,7 @@ from robust_pose_tpu_torch.parallel.mesh import (
     replicate,
 )
 from robust_pose_tpu_torch.train.losses import loss_metrics, supervised_pose_loss
-from robust_pose_tpu_torch.utils.profiling import span
+from robust_pose_tpu_torch.utils.profiling import host_read, span
 
 Tensor = torch.Tensor
 
@@ -111,7 +111,7 @@ class AdamWClip:
         g = {k: (torch.zeros_like(p) if grads.get(k) is None or k in frozen
                  else grads[k]) for k, p in params.items()}
         gnorm = global_norm(g.values())
-        if not bool(gnorm < self.max_norm):
+        if not host_read(gnorm < self.max_norm):
             g = {k: (v / gnorm) * self.max_norm for k, v in g.items()}
         state.count += 1
         one = torch.ones((), dtype=torch.float32)
@@ -260,44 +260,46 @@ class PoseNetTrainer:
         gradients, before the freeze and the clip). Under a mesh ``batch``
         is this rank's rows of the global batch and every output is the
         global batch's."""
-        accum = int(self._train_cfg.get("grad_accum", 1))
-        batch = self._nhwc_batch(batch)
-        b = batch[0].shape[0]
-        if b % accum:
-            raise ValueError(f"batch {b} not divisible by grad_accum {accum}")
-        for p in state.params.values():
-            p.grad = None
-        losses = []
-        # spans of the step's stages (chip_smoke.py's train_profile and
-        # utils.costs read them); outside a profiler they cost microseconds
-        for i in range(accum):
-            mb = [x[i * b // accum:(i + 1) * b // accum] for x in batch]
-            with span("train_step.forward"):
-                loss_pose = self._forward(mb, train=True, step=state.step)
-            with span("train_step.backward"):
-                loss_pose.mean().backward()
-            losses.append(loss_pose.detach())
-        # the parameters with a gradient: the same set on every rank
-        live = [k for k, p in state.params.items() if p.grad is not None]
-        summed = [state.params[k].grad for k in live]
-        if self.mesh is not None:
-            with span("train_step.allreduce"):
-                summed = mean_bucket(self.mesh, summed)
-        with span("train_step.update"):
-            grads = dict.fromkeys(state.params)
-            grads.update({k: g / accum for k, g in zip(live, summed)})
-            metrics = loss_metrics(self._global_rows(torch.stack(losses)),
-                                   "train")
-            metrics["train/grad_norm"] = global_norm(
-                g for g in grads.values() if g is not None)
-            self.optimizer.update(state.params, grads, state.opt_state)
+        with span("train_step"):
+            accum = int(self._train_cfg.get("grad_accum", 1))
+            batch = self._nhwc_batch(batch)
+            b = batch[0].shape[0]
+            if b % accum:
+                raise ValueError(f"batch {b} not divisible by grad_accum {accum}")
+            for p in state.params.values():
+                p.grad = None
+            losses = []
+            # spans of the step's stages (chip_smoke.py's train_profile,
+            # utils.costs and port_bench read them): two clock reads each
+            # with the profiler off
+            for i in range(accum):
+                mb = [x[i * b // accum:(i + 1) * b // accum] for x in batch]
+                with span("train_step.forward"):
+                    loss_pose = self._forward(mb, train=True, step=state.step)
+                with span("train_step.backward"):
+                    loss_pose.mean().backward()
+                losses.append(loss_pose.detach())
+            # the parameters with a gradient: the same set on every rank
+            live = [k for k, p in state.params.items() if p.grad is not None]
+            summed = [state.params[k].grad for k in live]
             if self.mesh is not None:
-                self.last_solver_iters = self._global_rows(
-                    self.last_solver_iters[None])
-        for p in state.params.values():
-            p.grad = None
-        state.step += 1
-        return state, metrics
+                with span("train_step.allreduce"):
+                    summed = mean_bucket(self.mesh, summed)
+            with span("train_step.update"):
+                grads = dict.fromkeys(state.params)
+                grads.update({k: g / accum for k, g in zip(live, summed)})
+                metrics = loss_metrics(self._global_rows(torch.stack(losses)),
+                                       "train")
+                metrics["train/grad_norm"] = global_norm(
+                    g for g in grads.values() if g is not None)
+                self.optimizer.update(state.params, grads, state.opt_state)
+                if self.mesh is not None:
+                    self.last_solver_iters = self._global_rows(
+                        self.last_solver_iters[None])
+            for p in state.params.values():
+                p.grad = None
+            state.step += 1
+            return state, metrics
 
     @torch.no_grad()
     def val_step(self, state: TrainState, batch) -> Dict[str, Tensor]:

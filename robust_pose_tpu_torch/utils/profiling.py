@@ -1,13 +1,26 @@
-"""Profiling hooks (port of ``robust_pose_tpu/utils/profiling.py``):
-``trace(logdir)`` captures a torch.profiler trace of a region (host and
-CUDA activity, written as a Chrome trace), and ``StageTimer`` keeps
-host-side per-stage wall time for the inference loop.
+"""Profiling hooks (port of ``robust_pose_tpu/utils/profiling.py``).
 
-``span(name)`` names a stage of a path: a ``record_function`` range that
-torch.profiler shows, and the span ``utils.costs`` files the FLOPs and
-bytes of the enclosed work under. ``profile_run`` runs a callable under
-torch.profiler on the card and gives its busy and idle time, the kernel
-time by group (``KERNEL_GROUPS``), by name and by span;
+``span(name)`` names a stage of a path, and is the port's one tracing
+system. Every call of a span records, on the host clock
+(``time.perf_counter_ns``), when it opened, how long it was open, the host
+syncs counted while it was open and whether a torch.profiler was active
+when it opened (``SpanRecord``): the last ``RING`` calls by name, beside a
+count and a total of every call (``span_records``, ``span_totals``;
+``reset`` forgets them). While a torch.profiler is active a span is also a
+``record_function`` range the trace shows; with the profiler off it costs
+two clock reads and a ring append. ``utils.costs`` files the FLOPs and
+bytes of the work under the innermost open span (``current_span``).
+``host_read(x)`` is the one way the program's paths read a device value
+to the host: it counts one host sync against every span open, as
+``new_tensor`` does for a host list copied to the device and
+``count_sync()`` for any other op that waits for the device on its own.
+``on_trace`` puts records on a torch.profiler trace's timeline.
+``StageTimer`` gives the CLIs' per-stage wall time, read from their spans
+``cli.<stage>``.
+
+``profile_run`` runs a callable under torch.profiler on the card and
+gives its busy and idle time, the kernel time by group
+(``KERNEL_GROUPS``), by name and by span;
 ``device_events`` gives the device records of repeated calls (kernels,
 copies, memsets), retaking a trace that lost some. ``span_rates`` joins a
 profiled run's spans to a counted run's: the achieved GB/s and TFLOP/s of
@@ -24,28 +37,67 @@ are built once per source hash under ``build/``, see ``ops/_build.py``).
 from __future__ import annotations
 
 import contextlib
-import os
 import time
-from collections import defaultdict
-from typing import Dict, Iterator, List
+from collections import defaultdict, deque
+from typing import Dict, Iterable, Iterator, List, NamedTuple, Tuple
 
 import torch
+from torch.autograd import _profiler_enabled
 from torch.profiler import record_function
 
-_spans: List[str] = []        # the spans open, innermost last
+RING = 4096                   # the calls of a span whose records are kept
 
 
-@contextlib.contextmanager
-def span(name: str) -> Iterator[None]:
-    """A named stage: a torch.profiler ``record_function`` range, and the
-    span ``utils.costs`` counts the enclosed work under. Outside a profiler
-    and a counter it costs a few microseconds."""
-    _spans.append(name)
-    try:
-        with record_function(name):
-            yield
-    finally:
+class SpanRecord(NamedTuple):
+    start_ns: int             # time.perf_counter_ns() when the span opened
+    ns: int                   # how long it was open, host ns
+    syncs: int                # host syncs counted while it was open
+    traced: bool              # a torch.profiler was active when it opened
+
+
+class _Stats:
+    __slots__ = ("calls", "total_ns", "ring")
+
+    def __init__(self):
+        self.calls, self.total_ns, self.ring = 0, 0, deque(maxlen=RING)
+
+
+_spans: List[str] = []        # the spans open, innermost last (all threads)
+_stats: Dict[str, _Stats] = {}
+host_syncs = 0                # host syncs counted in this process
+
+
+class span:
+    """A named stage: its host time and host syncs recorded on every call,
+    a torch.profiler ``record_function`` range while a profiler is active,
+    and the span ``utils.costs`` counts the enclosed work under."""
+
+    __slots__ = ("name", "_range", "_t0", "_s0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> None:
+        _spans.append(self.name)
+        self._range = None
+        if _profiler_enabled():
+            self._range = record_function(self.name)
+            self._range.__enter__()
+        self._s0 = host_syncs
+        self._t0 = time.perf_counter_ns()
+
+    def __exit__(self, *exc) -> None:
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        ns = time.perf_counter_ns() - self._t0
+        syncs = host_syncs - self._s0
         _spans.pop()
+        st = _stats.get(self.name)
+        if st is None:
+            st = _stats[self.name] = _Stats()
+        st.calls += 1
+        st.total_ns += ns
+        st.ring.append((self._t0, ns, syncs, self._range is not None))
 
 
 def current_span():
@@ -53,25 +105,66 @@ def current_span():
     return _spans[-1] if _spans else None
 
 
-@contextlib.contextmanager
-def trace(logdir: str) -> Iterator[None]:
-    """Capture a torch.profiler trace of the enclosed region into
-    ``logdir/trace.json`` (CUDA activity too when a card is present)."""
-    from torch.profiler import ProfilerActivity, profile
+def count_sync() -> None:
+    """Count one host sync against every span open: for an op that waits
+    for the device on its own, beside the op."""
+    global host_syncs
+    host_syncs += 1
 
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with profile(activities=acts) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+def host_read(x: torch.Tensor):
+    """``x``'s value on the host (``x.tolist()``: a Python number for a 0-d
+    tensor), one host sync counted against every span open."""
+    count_sync()
+    return x.tolist()
+
+
+def new_tensor(like: torch.Tensor, data) -> torch.Tensor:
+    """``like.new_tensor(data)``, host data copied to ``like``'s device: on
+    a CUDA device the copy from pageable memory waits for the stream, one
+    host sync counted against every span open (on the CPU too, as
+    ``host_read`` counts its reads)."""
+    count_sync()
+    return like.new_tensor(data)
+
+
+def span_records(name: str) -> List[SpanRecord]:
+    """The last ``RING`` calls of span ``name``, oldest first."""
+    st = _stats.get(name)
+    return [] if st is None else [SpanRecord(*r) for r in st.ring]
+
+
+def span_totals(name: str) -> Tuple[int, int]:
+    """(calls, host ns) of every call of span ``name`` since ``reset``."""
+    st = _stats.get(name)
+    return (0, 0) if st is None else (st.calls, st.total_ns)
+
+
+def reset() -> None:
+    """Forget every span's records and totals and the sync count."""
+    global host_syncs
+    _stats.clear()
+    host_syncs = 0
+
+
+def on_trace(records: Iterable[SpanRecord], prof) -> List[Tuple[float, float]]:
+    """Each record's (start, end) on the timeline of ``prof``, a finished
+    torch.profiler ``profile``, in the us of its events' ``time_range``:
+    the trace's events count from its start on the wall clock
+    (``trace_start_ns``), the records on ``perf_counter_ns``, so a record
+    moves by the two clocks' offset, read now. An idle gap of the trace
+    can then be put down to the span the host was in."""
+    offset = (time.time_ns() - time.perf_counter_ns()
+              - prof.profiler.kineto_results.trace_start_ns())
+    return [((r.start_ns + offset) / 1e3, (r.start_ns + r.ns + offset) / 1e3)
+            for r in records]
 
 
 def _synchronize(sync) -> None:
     """Wait for the device work behind ``sync`` (a tensor, or a nested
     list / tuple / dict of them): a CUDA synchronize on each CUDA device
-    it touches; CPU tensors are ready already."""
+    it touches, each counted as a host sync; CPU tensors are ready
+    already."""
     devices = set()
 
     def walk(x):
@@ -87,30 +180,48 @@ def _synchronize(sync) -> None:
 
     walk(sync)
     for d in devices:
+        count_sync()
         torch.cuda.synchronize(d)
 
 
 class StageTimer:
-    """Accumulates per-stage wall time; ``summary()`` returns mean ms."""
+    """Per-stage wall time of a loop: stage ``name`` is the span
+    ``cli.<name>``, and ``totals`` (s), ``counts`` and ``summary()`` (mean
+    ms) read that span's calls from this timer's first run of the stage
+    on."""
 
     def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
+        # each stage's span totals before its first run, first run first
+        self._base: Dict[str, Tuple[int, int]] = {}
 
     @contextlib.contextmanager
     def stage(self, name: str, sync=None) -> Iterator[None]:
         """Time a stage; pass ``sync=tensors`` to wait for their device
         work before the clock stops."""
-        t0 = time.perf_counter()
-        yield
-        if sync is not None:
-            _synchronize(sync)
-        self.totals[name] += time.perf_counter() - t0
-        self.counts[name] += 1
+        if name not in self._base:
+            self._base[name] = span_totals(f"cli.{name}")
+        with span(f"cli.{name}"):
+            yield
+            if sync is not None:
+                _synchronize(sync)
+
+    def _since(self, name: str) -> Tuple[int, int]:
+        calls, ns = span_totals(f"cli.{name}")
+        calls0, ns0 = self._base[name]
+        return calls - calls0, ns - ns0
+
+    @property
+    def totals(self) -> Dict[str, float]:
+        return defaultdict(float,
+                           {k: self._since(k)[1] / 1e9 for k in self._base})
+
+    @property
+    def counts(self) -> Dict[str, int]:
+        return defaultdict(int, {k: self._since(k)[0] for k in self._base})
 
     def summary(self) -> Dict[str, float]:
-        return {k: 1000.0 * self.totals[k] / max(self.counts[k], 1)
-                for k in self.totals}
+        totals, counts = self.totals, self.counts
+        return {k: 1000.0 * totals[k] / max(counts[k], 1) for k in self._base}
 
     def report(self) -> str:
         return "  ".join(f"{k}: {v:.1f}ms" for k, v in self.summary().items())
