@@ -10,7 +10,6 @@ from __future__ import annotations
 import torch
 
 from robust_pose_tpu_torch.ops.geometry import _inv3
-from robust_pose_tpu_torch.utils.profiling import new_tensor
 
 Tensor = torch.Tensor
 
@@ -149,7 +148,7 @@ def warp_then_eighth(x: Tensor, flow: Tensor) -> Tensor:
     b, h, w, c = x.shape
     h8, w8 = h // 8, w // 8
     ft = flow.reshape(b, h8, 8, w8, 8, 2)[:, :, 3:5, :, 3:5]
-    taps = new_tensor(flow, [3.0, 4.0])
+    taps = torch.arange(3, 5, dtype=flow.dtype, device=flow.device)   # [3, 4]
     rows = 8.0 * torch.arange(h8, dtype=flow.dtype, device=flow.device)[:, None] + taps
     cols = 8.0 * torch.arange(w8, dtype=flow.dtype, device=flow.device)[:, None] + taps
     cy = rows[None, :, :, None, None] + ft[..., 1]

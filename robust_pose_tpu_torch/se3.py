@@ -14,8 +14,6 @@ from __future__ import annotations
 
 import torch
 
-from robust_pose_tpu_torch.utils.profiling import new_tensor
-
 Tensor = torch.Tensor
 
 
@@ -41,7 +39,12 @@ def quat_mul(q1: Tensor, q2: Tensor) -> Tensor:
 
 
 def quat_conj(q: Tensor) -> Tensor:
-    return q * new_tensor(q, [-1.0, -1.0, -1.0, 1.0])
+    # the signs are filled on q's device (a host list copied there waits
+    # for the device's queue); a product, since negation and a product by
+    # -1 need not give a NaN the same sign bit
+    sign = torch.full((4,), -1.0, dtype=q.dtype, device=q.device)
+    sign[3:].fill_(1.0)
+    return q * sign
 
 
 def quat_rotate(q: Tensor, p: Tensor) -> Tensor:
