@@ -2129,9 +2129,10 @@ def phase_train(dev, smi):
     with the file's freeze_flow_steps of 1e18, which is not None, the JAX
     trainer's defaults would keep RAFT's gradients live), (b) RAFT live
     through the lane-wise lookup (freeze_flow_steps 0, lookup lanewise,
-    remat by default on the card). Random seeded weights, the flow head
-    biased as bench.py does and its kernel damped x0.1, so depth is valid
-    and RAFT's gradients also pass through the flow deltas."""
+    remat where a step without it would not fit the card). Random seeded
+    weights, the flow head biased as bench.py does and its kernel damped
+    x0.1, so depth is valid and RAFT's gradients also pass through the flow
+    deltas."""
     import copy
 
     base = train_yaml()

@@ -37,6 +37,12 @@ from robust_pose_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
+# what the training forward keeps for the backward pass outside RAFT (the
+# depths, warps, weight heads and pose layer), per full-resolution pixel of
+# a sample: about 68 f32 values (255-288 bytes counted with
+# torch.autograd.graph.saved_tensors_hooks from 64x96 to 384x512)
+POSE_SAVED_BYTES_PER_PIXEL = 272
+
 
 class PoseNetOutputs(NamedTuple):
     pose: Tensor          # (B, 7)
@@ -98,6 +104,15 @@ class PoseNet(nn.Module):
                 w.copy_(torch.randn(w.shape, generator=generator) / fan_in ** 0.5)
                 m.bias.zero_()
         self.loss_weight.fill_(1.0)
+
+    def saved_bytes(self, batch: int) -> int:
+        """Bytes autograd keeps for the backward pass of a training
+        ``forward`` of ``batch`` samples with RAFT's gradients live and
+        without remat: RAFT's pass over 4B images (fnet), 2B (cnet) and 3B
+        pairs (``RAFT.saved_bytes``), and the rest per pixel."""
+        h, w = self.config["image_shape"]
+        return (self.flow.saved_bytes(4 * batch, 2 * batch, 3 * batch, h, w)
+                + batch * h * w * POSE_SAVED_BYTES_PER_PIXEL)
 
     # building blocks -----------------------------------------------------
 

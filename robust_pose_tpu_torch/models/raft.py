@@ -79,6 +79,7 @@ from robust_pose_tpu_torch.ops.corr_onthefly import (
 )
 from robust_pose_tpu_torch.ops.corr_pixel import grouped_lookup_pyramid
 from robust_pose_tpu_torch.ops.instance_norm import instance_norm
+from robust_pose_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -558,14 +559,16 @@ class RAFT(nn.Module):
 
     def _run(self, fn, *args):
         """``fn(*args)``, recomputed in the backward pass under remat (all
-        of it, or all but the convolutions and products with "dots")."""
+        of it, or all but the convolutions and products with "dots"); each
+        checkpointed call is a call of span ``raft.remat``."""
         if self.remat and torch.is_grad_enabled():
-            if self.remat_policy == "dots":
-                return checkpoint(fn, *args, use_reentrant=False,
-                                  context_fn=functools.partial(
-                                      create_selective_checkpoint_contexts,
-                                      _dots_policy))
-            return checkpoint(fn, *args, use_reentrant=False)
+            with span("raft.remat"):
+                if self.remat_policy == "dots":
+                    return checkpoint(fn, *args, use_reentrant=False,
+                                      context_fn=functools.partial(
+                                          create_selective_checkpoint_contexts,
+                                          _dots_policy))
+                return checkpoint(fn, *args, use_reentrant=False)
         return fn(*args)
 
     @staticmethod
@@ -666,3 +669,110 @@ class RAFT(nn.Module):
                                  generator)
         net, inp = self.encode_cnet(image1, train, generator)
         return self.flow_from_features(fmaps[:b], fmaps[b:], net, inp)
+
+    def saved_bytes(self, fnet_images: int, cnet_images: int, pairs: int,
+                    height: int, width: int) -> int:
+        """Bytes autograd keeps for the backward pass of one training pass
+        without remat: ``fnet_images`` images of (height, width) through
+        the feature encoder, ``cnet_images`` through the context encoder,
+        ``pairs`` pairs through the lookup and the ``iters`` iterations.
+        Counted from the tensors this module's forward saves (what
+        ``torch.autograd.graph.saved_tensors_hooks`` sees), each storage
+        once, the parameters left out; the compute-dtype casts of the
+        weights are new tensors and count."""
+        cd = self.compute_dtype.itemsize
+        vd = self.corr_dtype.itemsize
+        sizes = [(height, width)]
+        for _ in range(3):                      # stride-2 convs round up
+            h, w = sizes[-1]
+            sizes.append(((h - 1) // 2 + 1, (w - 1) // 2 + 1))
+        h8, w8 = sizes[3]
+        n = h8 * w8
+        kept = (_encoder_saved_bytes(self.fnet, fnet_images, sizes, cd)
+                + _encoder_saved_bytes(self.cnet, cnet_images, sizes, cd)
+                # encode_cnet's tanh and ReLU keep their outputs
+                + cnet_images * n * (self.hdim + self.cdim) * cd)
+        levels = [(h8 >> l, w8 >> l) for l in range(CORR_LEVELS)]
+        d = 2 * self.radius + 1
+        route = self._route(self.fnet.conv2.weight)
+        c = self.fnet.conv2.out_channels
+        if route == "onthefly":
+            # K1 keeps f1 and f2's pooled levels in the correlation dtype
+            kept += pairs * c * vd * (n + sum(hl * wl for hl, wl in levels))
+        else:
+            # the all-pairs product keeps both f32 feature maps; the lookup
+            # (the one-hot products from the second iteration on, K4/K5
+            # always) keeps the volume's levels
+            kept += 2 * pairs * n * c * 4
+            if route != "xla" or self.iters > 1:
+                kept += pairs * n * vd * sum(hl * wl for hl, wl in levels)
+        if route == "xla":
+            # the one-hot weights W_y, W_x of every level; from the second
+            # iteration on, the coordinates carry a gradient: also their
+            # two bool masks each and W_y @ corr
+            first = sum(d * (hl + wl) * vd for hl, wl in levels)
+            later = sum(2 * d * (hl + wl) + d * (hl + 2 * wl) * vd
+                        for hl, wl in levels)
+            kept += pairs * n * (first + (self.iters - 1) * later)
+        kept += self.iters * (pairs * n * _update_saved_bytes(
+            self.update["update_block"], cd)
+            + _cast_bytes(self.update["update_block"], cd))
+        if not self.small:
+            # the mask head's ReLU output and its f32 copy; the convex
+            # upsampling's logits, softmax numerators, max, denominator,
+            # weighted sum and padded flow, f32
+            kept += pairs * n * (self.up_mask.mask_conv1.out_channels
+                                 * (cd + 4 * (cd != 4))
+                                 + 4 * (2 * 9 * 64 + 64 + 64 + 2 * 64 + 2))
+            kept += _cast_bytes(self.up_mask, cd)
+        return kept
+
+
+def _cast_bytes(module: nn.Module, cd: int) -> int:
+    """The copies of ``module``'s convolution kernels that a pass keeps:
+    each compute-dtype cast (an f32 layer runs on its parameter itself)
+    and the GRU's z and r kernels, concatenated in every dtype."""
+    return sum(m.weight.numel() * cd for name, m in module.named_modules()
+               if isinstance(m, (Conv2d, SplitConv1x1))
+               and (m.compute_dtype != torch.float32
+                    or name.rsplit(".", 1)[-1].startswith(("convz", "convr"))))
+
+
+def _encoder_saved_bytes(enc: BasicEncoder, images: int, sizes, cd: int) -> int:
+    """What an encoder keeps for ``images`` images; ``sizes``: the input's
+    (h, w), then after each stride-2 stage. Per tensor of a stage's width
+    and size, (compute dtype, f32) counts: instance norm keeps its input
+    and the next convolution the norm's output; BatchNorm keeps its centred
+    input in f32 and each ReLU its output; with no norm only the ReLUs
+    keep."""
+    (h0, w0), *rest = sizes
+    stem, block, down = {"instance": ((2, 0), (4, 0), (1, 0)),
+                         "batch": ((1, 1), (3, 2), (0, 1)),
+                         "none": ((1, 0), (3, 0), (0, 0))}[enc.norm]
+    width, *planes = enc.WIDTHS
+    n1 = rest[0][0] * rest[0][1]
+    kept = 3 * h0 * w0 * cd + n1 * width * (stem[0] * cd + stem[1] * 4)
+    for i, (p, (h, w)) in enumerate(zip(planes, rest)):
+        has_down = getattr(enc, f"layer{i + 1}_0").has_down
+        c = 2 * block[0] + has_down * down[0]
+        f = 2 * block[1] + has_down * down[1]
+        kept += h * w * p * (c * cd + f * 4)
+    return images * kept + _cast_bytes(enc, cd)
+
+
+def _update_saved_bytes(block: BasicUpdateBlock, cd: int) -> int:
+    """What one iteration of the update block keeps per query pixel of a
+    pair: the motion encoder's lookup planes, flow, every ReLU output and
+    the concatenation its last conv reads; each GRU pass's two
+    concatenations, gates, candidate and 1 - z (and the second pass's
+    input state); the flow head's input, ReLU output and its f32 copy."""
+    enc, gru = block.encoder, block.gru
+    convs = [m for m in enc.modules() if isinstance(m, (Conv2d, SplitConv1x1))]
+    motion = (enc.convc1.weight.shape[1] + 2 + enc.conv.in_channels
+              + sum(m.weight.shape[0] for m in convs))
+    passes = 2 if isinstance(gru, SepConvGRU) else 1
+    gate = gru.convz1 if passes == 2 else gru.convz
+    hdim, cin = gate.out_channels, gate.in_channels
+    recur = passes * (2 * cin + 4 * hdim) + (passes - 1) * hdim
+    head = block.flow_head.conv1.out_channels
+    return (motion + recur + hdim + head) * cd + head * 4 * (cd != 4)

@@ -15,9 +15,20 @@ train/val steps and their data-parallel meaning.
   (``torch.optim.AdamW`` would keep a count per parameter and skip
   parameters without a gradient).
 * The model defaults of the JAX trainer: ``stop_flow_grad`` when RAFT is
-  frozen for the whole run, ``remat`` on the card when RAFT gradients are
-  live, and ``lookup`` "auto" (on-the-fly) with ``stop_flow_grad``, else
-  "xla"; each can be set in the model config.
+  frozen for the whole run, and ``lookup`` "auto" (on-the-fly) with
+  ``stop_flow_grad``, else "xla"; each can be set in the model config.
+* ``remat``'s default is where the port differs from the JAX package,
+  which recomputes RAFT whenever its gradients are live (a step without
+  remat needs far more than a 16 GB TPU core holds). Here RAFT is
+  recomputed only on a card, with RAFT's gradients live, where a step
+  without remat would not fit (``plan_remat``): the bytes autograd keeps
+  for one microbatch of this rank, reckoned from the model's shapes
+  (``PoseNet.saved_bytes``), times ``PEAK_OVER_SAVED``, plus the gradients
+  and Adam's moments, against ``REMAT_FIT`` of the card's free memory at
+  construction, shared by the ranks that may run on that card. The
+  outputs are the same either way, bit for bit under deterministic
+  algorithms: remat only recomputes. ``remat_plan`` keeps the decision and
+  its two inputs; an explicit ``model.remat`` wins.
 * ``train.grad_accum`` splits the batch into microbatches run in order
   (the heads' BatchNorm statistics chain through them) and averages their
   gradients.
@@ -67,6 +78,11 @@ from robust_pose_tpu_torch.utils.profiling import host_read, span
 Tensor = torch.Tensor
 
 DROPOUT_SEED = 1234       # the JAX trainer's PRNGKey(1234)
+REMAT_FIT = 0.75          # share of the free memory a no-remat step may peak at
+# a no-remat step's peak over the bytes autograd keeps: 1.02 on an H100 at
+# 512x640, batch 8 (45.6 GB over 44.7), 1.36 at 64x96, batch 2, where the
+# gradients' and moments' own term carries the rest
+PEAK_OVER_SAVED = 1.10
 
 
 @dataclasses.dataclass
@@ -144,6 +160,43 @@ def make_optimizer(train_cfg: Dict, params: Dict[str, Tensor],
                      train_cfg.get("freeze_flow_steps", None))
 
 
+@dataclasses.dataclass(frozen=True)
+class RematPlan:
+    """How ``model.remat`` was chosen (see the module docstring)."""
+    remat: bool                   # RAFT recomputed in the backward pass
+    need_bytes: Optional[int]     # a no-remat step's estimated peak over
+                                  # what construction leaves allocated
+    free_bytes: Optional[int]     # this rank's share of the card's free
+                                  # memory at construction
+    # None: not reckoned (an explicit ``model.remat``, the CPU, RAFT frozen)
+
+
+def plan_remat(model: PoseNet, config: Dict, device: torch.device,
+               mesh: Optional[Mesh] = None) -> RematPlan:
+    """``remat`` for ``model``, built from the training ``config`` (model
+    and train keys as given): the config's ``model.remat`` where it sets
+    one; else off unless RAFT's gradients are live on a card and a step
+    without remat would not fit: its peak, ``PEAK_OVER_SAVED`` times what
+    autograd keeps for one microbatch of this rank
+    (``PoseNet.saved_bytes``) plus the gradients and Adam's two moments,
+    over ``REMAT_FIT`` of the card's free memory
+    (``torch.cuda.mem_get_info``) shared by the ranks that may be on it: one
+    under NCCL, the whole world under gloo."""
+    if config["model"].get("remat") is not None:
+        return RematPlan(bool(config["model"]["remat"]), None, None)
+    if device.type != "cuda" or model.config["stop_flow_grad"]:
+        return RematPlan(False, None, None)
+    train_cfg = config["train"]
+    world = 1 if mesh is None else mesh.world_size
+    rows = -(-int(train_cfg["batch_size"])
+             // (int(train_cfg.get("grad_accum", 1)) * world))
+    state = 3 * sum(p.numel() * p.element_size() for p in model.parameters())
+    need = int(PEAK_OVER_SAVED * model.saved_bytes(rows)) + state
+    sharing = 1 if mesh is None or mesh.backend == "nccl" else world
+    free = torch.cuda.mem_get_info(device)[0] // sharing
+    return RematPlan(need > REMAT_FIT * free, need, free)
+
+
 class PoseNetTrainer:
     """Train and validation steps of a PoseNet on one device, or on one
     rank of a data-parallel ``mesh``.
@@ -174,11 +227,13 @@ class PoseNetTrainer:
             "stop_flow_grad",
             freeze_flow and self._train_cfg.get("freeze_flow_steps") is None)
         model_cfg.setdefault("stop_flow_grad", stop_flow)
-        model_cfg.setdefault("remat", self.device.type == "cuda"
-                             and not model_cfg["stop_flow_grad"])
         model_cfg.setdefault("lookup",
                              "auto" if model_cfg["stop_flow_grad"] else "xla")
         self.model = PoseNet(model_cfg, device=self.device)
+        self.remat_plan = plan_remat(self.model, config, self.device,
+                                     self.mesh)
+        self.model.flow.remat = self.remat_plan.remat
+        self.model.config["remat"] = self.remat_plan.remat
         self.freeze_flow = freeze_flow
         self.optimizer = None  # built on init_state
         self.last_solver_iters = None  # (B,) realized LM iterations, last batch
